@@ -6,16 +6,17 @@ every 500 pulses, so each received pulse contributes to ~5 frames. The
 streaming path (models/videosar.py run(stream_spectra=True)) computes every
 pulse's matched-filtered forward FFT ONCE per collect
 (ops/bp_fast.py::forward_spectra) and forms each frame from the cached
-spectra — only the recentre ramp, presum, band-limited inverse transform
-and the backprojection accumulate run per frame. Noise is drawn per pulse
+spectra — only the recentre ramp, presum, inverse transform and the
+backprojection accumulate run per frame. Noise is drawn per pulse
 segment (the physical sensor semantics), which is what makes the cache
 valid across overlapping frames.
 
 This demo forms the same collect both ways and saves the per-frame images
-plus their difference (expected at the recentre kernel's f32 class,
-~1e-4 relative):
+plus their difference (expected at f32 rounding: the presum runs before
+the inverse FFT on one path and after it on the other):
 
 Run: python examples/streaming_videosar.py [--outdir .]
+(JAX uses its default platform; JAX_PLATFORMS=cpu pins the CPU.)
 """
 
 import argparse
@@ -27,12 +28,6 @@ import time
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 
 import jax
-
-if os.environ.get("STREAM_DEMO_TPU", "0") != "1":
-    # CPU demo by default (README contract: examples run on CPU in
-    # minutes); STREAM_DEMO_TPU=1 keeps the environment's device
-    jax.config.update("jax_platforms", "cpu")
-
 import numpy as np
 
 from nis_sar_amtigmti_video_tpu import config as cfg
@@ -82,11 +77,7 @@ def main():
     n = per_frame.images.shape[0]
     print(f"{n} frames | per-frame path {t_frame:.1f} s | "
           f"streaming path {t_stream:.1f} s | "
-          f"max image delta {diff / scale:.2e} (f32 recentre class)")
-    if jax.default_backend() == "cpu":
-        print("(CPU demo: the streaming kernels run INTERPRETED here, so "
-              "the timing is not meaningful — on TPU the streaming path "
-              "skips ~80% of the recentre pass; see bench bp_stream_frame_ms)")
+          f"max image delta {diff / scale:.2e} (f32 rounding class)")
 
     try:
         import matplotlib

@@ -1,11 +1,11 @@
-"""TPU-native SAR / AMTI-GMTI / VideoSAR framework.
+"""SAR / AMTI-GMTI / VideoSAR framework in JAX.
 
-A brand-new JAX/XLA/Pallas/pjit re-design of the capabilities of the
+A JAX/XLA re-design of the capabilities of the
 ``NIS-SAR-AMTIGMTI-Video`` reference toolkit (see SURVEY.md): vmapped point-target
 raw-echo simulation, on-device image formation (CSA / RDA / backprojection),
 multichannel GMTI (ATI, DPCA, CRT, CFAR), VideoSAR frame pipelines, HRWS
 multichannel azimuth-ambiguity reconstruction, and constellation/mission design
-math — sharded over a TPU mesh with JAX collectives.
+math — sharded over a device mesh with JAX collectives.
 
 Precision policy
 ----------------
@@ -15,13 +15,15 @@ sub-mm range accuracy, which float32 cannot represent (reference relies on
 numpy float64 / torch complex128 for the same reason, e.g.
 ``sar_ati_dcpa_sim_csa.py:118``). All *large* tensors (phase histories, images)
 are explicitly complex64/float32: phases are wrapped mod 2π in f64 *before*
-being cast down, so the hot compute path is pure f32/c64 VPU/MXU work.
+being cast down, so the hot compute path is pure f32/c64 work. Every f32/c64
+matmul and einsum on the main path states its ``precision``: on the GPU an
+unstated float32 matmul runs in TF32, outside the focusing fidelity budgets.
 
 Host transfer policy
 --------------------
-complex64 arrays cannot cross the host<->device boundary on all TPU runtimes;
-use :mod:`nis_sar_amtigmti_video_tpu.utils.cplx` (``to_host`` / ``to_device``)
-which moves real/imag planes and (re)assembles complex on the proper side.
+:mod:`nis_sar_amtigmti_video_tpu.utils.cplx` (``to_host`` / ``to_device``)
+moves arrays, complex included, across the host<->device boundary in one
+direct transfer each.
 """
 
 import os as _os

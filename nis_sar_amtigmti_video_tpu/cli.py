@@ -461,7 +461,7 @@ def main(argv=None):
     p = add_cmd("videosar")
     p.add_argument("--algo", default="mbp", choices=["mbp", "stdbp", "csa"])
     p.add_argument("--bp-backend", default="fast",
-                   choices=["fast", "fast_pallas", "fast_factor", "exact"])
+                   choices=["fast", "fast_factor", "exact"])
     p.add_argument("--heading", type=float, default=0.0)
     p.add_argument("--speed", type=float, default=15.0)
     p.add_argument("--frames", type=int, default=0)
@@ -528,21 +528,33 @@ def main(argv=None):
 
     args = ap.parse_args(argv)
     os.makedirs(args.out, exist_ok=True)
+    from nis_sar_amtigmti_video_tpu.utils.runtime import enable_compile_cache
+    enable_compile_cache()
     if args.fast_sim:
         global _FAST_SIM
         _FAST_SIM = True
-    if args.log:
-        from nis_sar_amtigmti_video_tpu.utils.runlog import RunLogger
-        with RunLogger(args.log, run_id=args.cmd) as rl:
-            global _RUNLOG
-            _RUNLOG = rl
-            rl.event("start", argv=argv or sys.argv[1:])
-            t0 = time.time()
+    try:
+        if args.log:
+            from nis_sar_amtigmti_video_tpu.utils.runlog import RunLogger
+            with RunLogger(args.log, run_id=args.cmd) as rl:
+                global _RUNLOG
+                _RUNLOG = rl
+                rl.event("start", argv=argv or sys.argv[1:])
+                t0 = time.time()
+                args.fn(args)
+                rl.event("done", wall_s=round(time.time() - t0, 2))
+                _RUNLOG = None
+        else:
             args.fn(args)
-            rl.event("done", wall_s=round(time.time() - t0, 2))
-            _RUNLOG = None
-    else:
-        args.fn(args)
+    except ModuleNotFoundError as e:
+        if e.name not in _RENDER_DEPS:
+            raise
+        sys.exit(f"error: '{args.cmd}' renders its products with "
+                 f"{_RENDER_DEPS[e.name]}, which is not installed")
+
+
+# optional packages only the render step imports -> their distribution names
+_RENDER_DEPS = {"matplotlib": "matplotlib", "PIL": "Pillow"}
 
 
 _RUNLOG = None

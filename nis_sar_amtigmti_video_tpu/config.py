@@ -118,13 +118,10 @@ class CollectConfig:
     window_start_mode: str = "reference"  # 'reference': 2R0/c - Tp/2 - 1us
                                           # 'centered':  2R0/c - win/2 (sar_batch_sim.py:89)
     even_pulses: bool = True              # round pulse count up to even (FFT-friendly)
-    echo_backend: str = "jnp"             # 'jnp' | 'pallas' | 'freq' (ops/echo.py)
+    echo_backend: str = "jnp"             # 'jnp' | 'freq' (ops/echo.py)
     # 'freq' backend spreading oversample. 2 is golden-grade with the
     # exact-edge split (acceptance budgets hold at mid/full scale —
-    # ops/echo_freq.py accuracy class) AND keeps the conv FFT length inside
-    # the fused kernel's 65,536 ceiling; 4 (the round-1 approximate-mode
-    # margin) doubles the grid and forces the XLA-FFT fallback — the
-    # measured 1.22 -> 0.73 s/channel full-ATI gap (ROUND4_NOTES).
+    # ops/echo_freq.py accuracy class); 4 doubles the spreading grid.
     echo_oversample: int = 2
 
     def num_pulses(self, prf_hz: float) -> int:
@@ -195,17 +192,15 @@ class ProcessingConfig:
     azimuth_window: str = "hamming"   # RDA azimuth taper (reference behavior)
     range_window: str = "hamming"     # RDA matched-filter taper
     rcmc_mode: str = "exact"      # RDA RCMC: 'exact'|'fast'|'phase'|'czt'
-                                  # ('phase' = gather-free TPU mode, ~11x
-                                  # faster at 4k²; see ops/rda.py)
+                                  # ('phase' = gather-free; see ops/rda.py)
     bp_grid: int = 512            # BP pixels per side (sar_batch_sim.py:173)
     bp_scene_size_m: float = 500.0
     bp_presum: int = 0            # azimuth presum: 0 = auto (ops/bp.py::
                                   # presum_factor), 1 = off, N = explicit
     out_size: int = 0             # 0 = native size; else pad/crop for formation
     csa_fused: bool = True        # grid-free fused phases (ops/csa.py)
-    # 'auto' (MXU matmul FFT on TPU — at the full-scale reference aperture
-    # the non-pow2 XLA TPU FFT is ~15x slower — stock jnp.fft elsewhere) |
-    # 'xla' | 'hybrid' | 'mxu' (ops/fft.py) | 'pallas' (VMEM megakernel)
+    # 'auto' (= 'xla', stock jnp.fft) | 'xla' | 'hybrid' | 'mxu'
+    # (ops/fft.py::get_impl)
     fft_impl: str = "auto"
 
 

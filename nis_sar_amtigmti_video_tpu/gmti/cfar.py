@@ -3,7 +3,7 @@
 The reference has no explicit detector (detection is visual, via the viewers)
 but the BASELINE north star names CFAR as a first-class GMTI stage. This is a
 standard CA-CFAR over the DPCA magnitude (or ATI-velocity-gated) map,
-TPU-shaped: the training-cell mean is two box sums computed with separable
+Device-shaped: the training-cell mean is two box sums computed with separable
 sliding-window reductions — pixel-independent, f32-safe, no gather loops.
 """
 
@@ -51,8 +51,8 @@ def _box_sum(x, half: int):
     sum is O(target power) and differencing it for weak cells far away loses
     their entire training sum. Locally-windowed sums never difference large
     accumulators (each output sums only 2*half+1 values), so f32 keeps
-    relative error ~2^-24 of the *local* sum — and f32 is what TPU v5e wants:
-    the f64-cumsum variant doubled the full-GMTI-step latency (emulated f64)."""
+    relative error ~2^-24 of the *local* sum, with no f64 work on the
+    (P, Ns) plane."""
     k = 2 * half + 1
     nb = x.ndim - 2
     win = (1,) * nb + (k, 1)

@@ -6,7 +6,7 @@ yields candidate velocities v_i = C_i*(phi_i + 2*pi*k_i) with
 C_i = lambda*v_amb/(4*pi*R_i); candidates are ranked by |v_1 - v_2| and the
 best consistent pair's mean is the unwrapped radial velocity.
 
-The TPU version evaluates the whole (2K+1)^2 hypothesis grid as one
+This version evaluates the whole (2K+1)^2 hypothesis grid as one
 vectorized outer sum and also vmaps over batched phase pairs, so dense
 per-pixel unwrapping of an ATI velocity map is a single device kernel.
 """

@@ -9,7 +9,7 @@ over the 4096^2 SLC pair. This step computes identical products with:
   pass B  one fused elementwise map: the balance rotation is folded
           analytically into the interferogram (x e^{-j cal}) and the
           difference (s1 - s2 e^{+j cal}) — the balanced channel is never
-          written to HBM
+          written to device memory
   pass C  CFAR box sums on |diff|^2 (cfar.ca_cfar, separable reduce_window)
 
 Products match the composed path exactly (same formulas, same rounding
@@ -17,8 +17,6 @@ class); tests/test_gmti.py::TestFusedStep asserts equality.
 """
 
 from __future__ import annotations
-
-import math
 
 import jax
 import jax.numpy as jnp
@@ -54,150 +52,3 @@ def gmti_product_step(s1, s2, *, balance: bool = True,
 
     det = cfar_mod.ca_cfar(power, cfar_params or cfar_mod.CfarParams())
     return cal, phase, dmag, det
-
-
-def _hbox(x, half: int):
-    """Centered box sum along the last axis only (zero padded)."""
-    k = 2 * half + 1
-    pad = [(0, 0)] * (x.ndim - 1) + [(half, half)]
-    win = (1,) * (x.ndim - 1) + (k,)
-    return jax.lax.reduce_window(x, jnp.zeros((), x.dtype), jax.lax.add,
-                                 win, (1,) * x.ndim, pad)
-
-
-def gmti_cpi_pallas(x1r, x1i, x2r, x2i, f, *, balance: bool = True,
-                    mask_threshold: float = 0.05,
-                    cfar_params: cfar_mod.CfarParams | None = None,
-                    mode: str = "bf16x3", interpret: bool = False,
-                    k2_variant: str = "dots",
-                    lead_variant: str = "swap",
-                    balance_impl: str = "pallas",
-                    k1_impl: str = "fused2ch",
-                    k2_impl: str = "pair",
-                    k2_mode: str | None = None,
-                    k2_rows: int = 32,
-                    epilogue: str = "pallas",
-                    phi1_table=None):
-    """Full 2-channel GMTI CPI — raw phase-history planes in, SLC planes +
-    products out — with the product step fused into the CSA megakernel's
-    K3 output pass (ops/pallas/gmti_kernel.py).
-
-    Same products as ``gmti_product_step`` composed after formation (f32
-    rounding classes; the balance reduction runs over the raw pair via the
-    unitarity argument in the kernel module docstring).
-
-    Returns (s1r, s1i, s2r, s2i, cal, phase, dmag, CfarResult).
-
-    ``phi1_table``: optional precomputed Phi1 (cos, sin) planes
-    (gmti_kernel.phi1_tables) — the streaming path builds them once per
-    factor set and saves K1g's ~0.8 ms in-kernel transcendental bill
-    (round-5 probe_k5_r5.py). None keeps the self-contained trig.
-
-    ``k2_mode`` overrides the dot precision of the K2 pass alone (None =
-    follow ``mode``): 'wf16' truncates only the K2 tables to bf16 (2 dots
-    per contraction instead of bf16x3's 3). Measured and RULED OUT as a
-    production setting (round 4: 0.30 dB fidelity bust for a 1.7% CPI
-    saving — K2 is VPU/layout-bound, not dot-bound;
-    scripts/probe_k2_mode_r4.py, ROUND4_NOTES §2). Probe-only knob.
-    """
-    from nis_sar_amtigmti_video_tpu.ops.pallas import csa_kernel, gmti_kernel
-
-    p = cfar_params or cfar_mod.CfarParams()
-    k2m = k2_mode or mode
-    size_az, size_rg = x1r.shape[-2], x1r.shape[-1]
-    b = int(math.isqrt(size_rg))
-    interp = interpret or jax.default_backend() != "tpu"
-
-    if k1_impl == "fused2ch":
-        # two-channel K1 with the balance reduction riding its tile read —
-        # one pallas pass replaces two K1 calls AND the raw_balance pass
-        # (the shared tables/Phi1 and the saved 256 MB read)
-        with jax.enable_x64(False):
-            z1r, z1i, z2r, z2i, xs_re, xs_im = gmti_kernel.k1_gmti_planes(
-                x1r, x1i, x2r, x2i, f, interpret=interp, mode=mode,
-                lead_variant=lead_variant, balance=balance,
-                phi1_table=phi1_table)
-        cal = (jnp.arctan2(xs_im, xs_re) if balance
-               else jnp.zeros((), jnp.float32))
-        cal_cs = jnp.stack([jnp.cos(cal), jnp.sin(cal)]).reshape(1, 2)
-        with jax.enable_x64(False):
-            if k2_impl == "pair":
-                # one pass for both channels: the Phi2/Phi3 trig fields are
-                # data-independent, so the pair kernel evaluates them once
-                # (half of K2's transcendental bill) — bit-identical per
-                # channel to the split calls
-                z1r, z1i, z2r, z2i = csa_kernel.k2_pair_call(
-                    z1r, z1i, z2r, z2i, f, b, interp, k2m,
-                    rows=k2_rows, variant=k2_variant)
-            else:
-                z1r, z1i = csa_kernel._k2_call(z1r, z1i, f, b, interp,
-                                               k2m, variant=k2_variant)
-                z2r, z2i = csa_kernel._k2_call(z2r, z2i, f, b, interp,
-                                               k2m, variant=k2_variant)
-    else:
-        # balance phase from the raw pair (K1/K2/K3 unitary up to + scale);
-        # the pallas reduction makes ONE HBM pass over the four planes where
-        # the jnp twin costs ~1.4 ms of the CPI at 4096^2
-        if balance and balance_impl == "pallas":
-            with jax.enable_x64(False):
-                xs_re, xs_im = gmti_kernel.raw_balance_pallas(
-                    x1r, x1i, x2r, x2i, interpret=interp)
-            cal = jnp.arctan2(xs_im, xs_re)
-        elif balance:
-            xs_re = jnp.sum(x1r * x2r + x1i * x2i)
-            xs_im = jnp.sum(x1i * x2r - x1r * x2i)
-            cal = jnp.arctan2(xs_im, xs_re)
-        else:
-            cal = jnp.zeros((), jnp.float32)
-        cal_cs = jnp.stack([jnp.cos(cal), jnp.sin(cal)]).reshape(1, 2)
-
-        def k12(zr, zi):
-            a = int(math.isqrt(size_az))
-            with jax.enable_x64(False):
-                zr, zi = csa_kernel._k1_call(zr, zi, f.u.reshape(1, -1),
-                                             f.c1.reshape(-1, 1),
-                                             f.w.reshape(-1, 1), a, interp,
-                                             mode, variant=lead_variant)
-                return csa_kernel._k2_call(zr, zi, f, b, interp, k2m,
-                                           variant=k2_variant)
-
-        # separate per-channel K1/K2 calls measure faster than one vmapped
-        # batched dispatch here (18.5 vs 21.0 ms full-CPI): the stack/unstack
-        # copies around the batched kernel outweigh the grid batching gain
-        z1r, z1i = k12(x1r, x1i)
-        z2r, z2i = k12(x2r, x2i)
-    (s1r, s1i, s2r, s2i, ph_raw, mag, power, cso, csi,
-     peaks) = gmti_kernel.k3_gmti_planes(
-        z1r, z1i, z2r, z2i, cal_cs, h_out=p.guard + p.train, h_in=p.guard,
-        interpret=interp, mode=mode, lead_variant=lead_variant)
-
-    peak2 = jnp.max(peaks)
-    if epilogue == "pallas":
-        # cross-tile stages in ONE pallas pass (K4): the range halves of
-        # the CFAR box sums, rank-1 training counts, noise/SNR, the
-        # peak-referenced phase mask and dmag — each K3g product plane is
-        # read once instead of the XLA chain's ~12 plane passes
-        # (round-5; same f32 class as the composed epilogue)
-        with jax.enable_x64(False):
-            snr, phase, dmag, noise = gmti_kernel.k4_epilogue_planes(
-                cso, csi, power, ph_raw, mag,
-                (mask_threshold ** 2) * peak2,
-                h_out=p.guard + p.train, h_in=p.guard, interpret=interp)
-        det = cfar_mod.CfarResult(detections=snr > p.alpha, snr=snr,
-                                  noise=noise)
-        return s1r, s1i, s2r, s2i, cal, phase, dmag, det
-    if epilogue != "xla":
-        raise ValueError(f"unknown epilogue {epilogue!r}: 'pallas'|'xla'")
-    # composed XLA epilogue (the K4 equality reference)
-    outer = _hbox(cso, p.guard + p.train)
-    inner = _hbox(csi, p.guard)
-    n_outer = cfar_mod._box_count((size_az, size_rg), p.guard + p.train)
-    n_inner = cfar_mod._box_count((size_az, size_rg), p.guard)
-    n_train = jnp.maximum(n_outer - n_inner, 1.0)
-    noise = (outer - inner) / n_train
-    snr = power / jnp.maximum(noise, 1e-30)
-    det = cfar_mod.CfarResult(detections=snr > p.alpha, snr=snr,
-                              noise=noise)
-    phase = jnp.where(mag > (mask_threshold ** 2) * peak2, ph_raw, 0.0)
-    dmag = jnp.sqrt(power)
-    return s1r, s1i, s2r, s2i, cal, phase, dmag, det

@@ -3,9 +3,8 @@
 Complements the per-frame .npy spill (io/products.py): for long
 multi-scenario campaigns a single versioned checkpoint tree (orbax) holds
 SLC stacks, schedules and run metadata with atomic step directories.
-Complex arrays are stored as stacked real/imag (the same convention as the
-device boundary — utils/cplx.pack/unpack) because some checkpoint backends
-reject complex dtypes.
+Complex arrays are stored as stacked real/imag because some checkpoint
+backends reject complex dtypes.
 """
 
 from __future__ import annotations

@@ -4,8 +4,7 @@ Packages the framework's full sharded processing step for production use:
 frame batches shard over 'data', receive channels over 'chan', and the
 pulse/range axis over 'seq' with corner-turned CSA
 (parallel/corner_turn.py). Cross-channel products use one all_gather over
-'chan'; scalar metrics psum over the whole mesh. On a v5e-8 this is the
-deployment shape of the BASELINE target (30 fps of 4k^2 GMTI imagery).
+'chan'; scalar metrics psum over the whole mesh.
 
 Numerics are identical to the single-device pipeline (asserted on the
 8-virtual-device CPU mesh in tests/test_distributed.py).
@@ -87,7 +86,10 @@ def _cfar_snr_halo(power_l, cfar_params: cfar_mod.CfarParams, *,
     # one packed halo per direction serves both windows (h_i <= h_o)
     fwd = [(i, i + 1) for i in range(n_seq - 1)]
     bwd = [(i + 1, i) for i in range(n_seq - 1)]
-    pack_tail = jnp.concatenate([y_o[..., -h_o:], y_i[..., -h_i:]], axis=-1)
+    # explicit start indices: a zero half-window (guard=0) must slice an
+    # EMPTY halo — x[..., -0:] would be the whole shard
+    pack_tail = jnp.concatenate([y_o[..., ns_local - h_o:],
+                                 y_i[..., ns_local - h_i:]], axis=-1)
     pack_head = jnp.concatenate([y_o[..., :h_o], y_i[..., :h_i]], axis=-1)
     from_left = jax.lax.ppermute(pack_tail, "seq", fwd)   # edge shards: 0
     from_right = jax.lax.ppermute(pack_head, "seq", bwd)
@@ -149,7 +151,7 @@ def make_gmti_step(mesh: Mesh, p: csa_ops.CsaParams,
         # columns with the 'seq' neighbors (two ppermutes of the
         # azimuth-summed halos, ~2*h_o columns per shard) instead of
         # all_gathering the whole (P, Ns) power plane — 134 MB -> ~0.5 MB
-        # per CPI at the production shape (docs/SCALING.md §2). Identical
+        # per CPI at the 4096^2 shape, by count. Identical
         # windows to the single-device detector: interior shards see their
         # neighbors' true training columns; the mesh-edge shards receive
         # ppermute's zero fill, which IS ca_cfar's zero padding.

@@ -42,8 +42,8 @@ class GmtiProducts(NamedTuple):
 def simulate_two_channel(sc: ScenarioConfig, moving: PointTargets,
                          target_velocity, static: Optional[PointTargets] = None):
     """Raw phase histories for both channels: a (2, P, Ns) complex64 array
-    (direct backends) or a per-channel tuple (backend='freq' — see
-    ops/echo.py::multi_channel_phase_history on the TPU layout trap).
+    (direct backend) or a per-channel tuple (backend='freq' — see
+    ops/echo.py::multi_channel_phase_history).
 
     Moving and stationary scatterer sets are simulated separately (each with
     its own rigid velocity) and summed — the reference's 4-pass structure
@@ -72,19 +72,9 @@ def simulate_two_channel(sc: ScenarioConfig, moving: PointTargets,
 def focus_and_products(raw2ch, sc: ScenarioConfig, t0: float, *,
                        shift_pulses: int = 1, balance: bool = True,
                        mask_threshold: float = 0.05,
-                       cfar_params: cfar.CfarParams = cfar.CfarParams(),
-                       path: str = "auto", interpret: bool = False
+                       cfar_params: cfar.CfarParams = cfar.CfarParams()
                        ) -> GmtiProducts:
-    """DPCA shift -> dual CSA -> ATI/DPCA/velocity/CFAR products.
-
-    path: 'composed' (per-op pipeline below), 'kernel_fused' (the
-    products ride the CSA megakernel's K3 output pass —
-    gmti/fused.py::gmti_cpi_pallas, the streaming headline path; needs a
-    square-factorable CPI and a TPU, or ``interpret=True`` for tests), or
-    'auto' (kernel_fused where supported AND the config already opted into
-    the pallas numeric class via ``sc.processing.fft_impl='pallas'`` —
-    a pinned fft_impl keeps its composed semantics; composed otherwise).
-    """
+    """DPCA shift -> dual CSA -> ATI/DPCA/velocity/CFAR products."""
     r, g = sc.radar, sc.geometry
     raw1, raw2 = dpca.pulse_shift_coregister(raw2ch[0], raw2ch[1],
                                              shift_pulses)
@@ -94,32 +84,10 @@ def focus_and_products(raw2ch, sc: ScenarioConfig, t0: float, *,
         prf_hz=r.prf_hz, velocity_mps=g.effective_velocity_mps,
         range_ref_m=g.slant_range_m, t_start_fast=t0,
         num_pulses=n_p, num_samples=n_s)
-    if path not in ("composed", "kernel_fused", "auto"):
-        raise ValueError(f"unknown GMTI path {path!r}")
-    if path in ("kernel_fused", "auto"):
-        from nis_sar_amtigmti_video_tpu.ops.pallas import csa_kernel
-        ok = csa_kernel.supported(n_p, n_s) and (
-            interpret or jax.default_backend() == "tpu")
-        if path == "auto" and sc.processing.fft_impl != "pallas":
-            ok = False         # respect a pinned composed numeric class
-        if path == "kernel_fused" and not ok:
-            raise ValueError(
-                f"path='kernel_fused' needs a square-factorable CPI and a "
-                f"TPU (or interpret=True); got {(n_p, n_s)} on "
-                f"{jax.default_backend()}")
-        if ok:
-            return _products_kernel_fused(raw1, raw2, p, sc,
-                                          balance=balance,
-                                          mask_threshold=mask_threshold,
-                                          cfar_params=cfar_params,
-                                          interpret=interpret)
     # fused grid-free CSA (bit-equivalent to the grid-phase path per
     # tests/test_fft_fused.py); sc.processing.fft_impl selects 'auto' |
-    # 'xla' | 'hybrid' | 'mxu' | 'pallas' (VMEM megakernel when the shape
-    # allows). Channels are focused per-array: stacking two full-scale
-    # odd-size channels into one (2, P, Ns) complex64 hits a catastrophic
-    # 64x tile-padded layout on TPU (ops/pallas/csa_kernel.py docstring);
-    # raw2ch may therefore also be a (ch1, ch2) tuple.
+    # 'xla' | 'hybrid' | 'mxu' (ops/fft.py). Channels are focused
+    # per-array, so raw2ch may also be a (ch1, ch2) tuple.
     factors = csa_ops.csa_factors(p)
     # velocity inversion uses the *phase-center progression* speed (the
     # platform's true along-track velocity): the channel lag is B/(2*V_sat),
@@ -149,11 +117,8 @@ def focus_and_products(raw2ch, sc: ScenarioConfig, t0: float, *,
 def _composed_core(raw1, raw2, factors, *, fft_impl, balance, mask_threshold,
                    cfar_params, wavelength_m, v_platform, baseline_m):
     """The composed focus+products chain under ONE jit: dual CSA, balance,
-    ATI/DPCA, velocity map, CFAR, cancellation ratio.
-
-    Un-jitted, each of these dispatched separately — ~0.8 s of eager
-    dispatch + intermediate HBM round trips at the full-scale reference
-    shape vs ~0.35 s fused (scripts/probe_e2e_breakdown_r4.py)."""
+    ATI/DPCA, velocity map, CFAR, cancellation ratio — one program, so no
+    eager dispatch and no intermediate round trips between the stages."""
     slc1 = csa_ops.apply_csa_fused(raw1, factors, fft_impl)
     slc2 = csa_ops.apply_csa_fused(raw2, factors, fft_impl)
 
@@ -169,39 +134,6 @@ def _composed_core(raw1, raw2, factors, *, fft_impl, balance, mask_threshold,
     det = cfar.ca_cfar(dmag ** 2, cfar_params)
     ratio = dpca.cancellation_ratio(slc1, diff)
     return slc1, slc2, cal, phase, dmag, vmap_, det, ratio
-
-
-def _products_kernel_fused(raw1, raw2, p, sc: ScenarioConfig, *, balance,
-                           mask_threshold, cfar_params,
-                           interpret: bool) -> GmtiProducts:
-    """GmtiProducts via the kernel-fused CPI (gmti/fused.py): formation and
-    every product plane in three pallas dispatches per channel-pair."""
-    from nis_sar_amtigmti_video_tpu.gmti import fused as fused_mod
-
-    r, g = sc.radar, sc.geometry
-    f = csa_ops.csa_factors(p)
-    (s1r, s1i, s2r, s2i, cal, phase, dmag,
-     det) = fused_mod.gmti_cpi_pallas(
-        jnp.real(raw1).astype(jnp.float32), jnp.imag(raw1).astype(jnp.float32),
-        jnp.real(raw2).astype(jnp.float32), jnp.imag(raw2).astype(jnp.float32),
-        f, balance=balance, mask_threshold=mask_threshold,
-        cfar_params=cfar_params, interpret=interpret)
-    slc1 = jax.lax.complex(s1r, s1i)
-    slc2 = jax.lax.complex(s2r, s2i)
-    if balance:
-        slc2 = ati.apply_balance(slc2, cal)
-    v_platform = g.speed_mps
-    v_amb = velocity.ambiguous_velocity(r.wavelength_m, v_platform,
-                                        sc.channels.baseline_m)
-    vmap_ = velocity.velocity_from_phase(phase, r.wavelength_m, v_platform,
-                                         sc.channels.baseline_m)
-    # dpca.cancellation_ratio on the kernel's |dpca| plane (abs is a no-op)
-    ratio = dpca.cancellation_ratio(slc1, dmag)
-    rax, cax = csa_ops.csa_axes(p)
-    return GmtiProducts(slc1=slc1, slc2=slc2, ati_phase=phase, dpca_mag=dmag,
-                        velocity_map=vmap_, detections=det,
-                        cancellation_ratio=ratio, cal_phase=cal,
-                        range_axis=rax, cross_range=cax, v_amb=v_amb)
 
 
 def run(sc: ScenarioConfig, moving: PointTargets, target_velocity,

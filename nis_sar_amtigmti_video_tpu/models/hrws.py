@@ -17,7 +17,7 @@ geometry), giving in Doppler
 
 with m running over the M aliased Doppler bands. Per base Doppler bin this is
 a K x M linear system; solving it for all (bin, range) pairs is one batched
-``jnp.linalg.solve`` — MXU-shaped work, sharded over range bins on the mesh
+``jnp.linalg.solve`` — batched small solves, sharded over range bins on the mesh
 'seq' axis if desired. The unfolded spectrum spans M*PRF: an effective PRF
 multiplication that removes azimuth ghosts (tested in tests/test_hrws.py).
 """
@@ -86,9 +86,7 @@ def reconstruct(raw_channels, p: HrwsParams):
 
     raw_channels: (K, P, Ns) complex64 — per-channel raw (or range-compressed)
     data at the *system* PRF — or a tuple/list of K (P, Ns) arrays (the
-    echo engine's backend='freq' return form; stacked here, which is fine at
-    reconstruction scales — the TPU channel-stack layout trap only bites at
-    the full 7,200 x 13,200 synthesis shape).
+    echo engine's backend='freq' return form; stacked here).
     Returns (M*P, Ns) complex64 — the reconstructed single-channel-equivalent
     slow-time signal at PRF_eff = M*PRF (uniform grid, natural fft order in
     azimuth restored by the inverse FFT).
@@ -111,12 +109,14 @@ def reconstruct(raw_channels, p: HrwsParams):
     # integer — channels sampling coincident effective positions) the plain
     # solve blows up to NaN; Tikhonov loading keeps it finite (noise
     # amplification is then the caller's diagnostic via condition_numbers).
+    # HIGHEST: a TF32 Gram product cannot hold the ghost-suppression budget
     y = jnp.transpose(spec, (1, 0, 2))
     ah = jnp.conj(jnp.swapaxes(a, -1, -2))
-    gram = ah @ a
+    hi = jax.lax.Precision.HIGHEST
+    gram = jnp.matmul(ah, a, precision=hi)
     eps = 1e-6 * jnp.mean(jnp.abs(jnp.diagonal(gram, axis1=-2, axis2=-1)))
     gram = gram + eps * jnp.eye(m, dtype=gram.dtype)
-    u = jnp.linalg.solve(gram, ah @ y)
+    u = jnp.linalg.solve(gram, jnp.matmul(ah, y, precision=hi))
 
     # scatter bands into the extended spectrum (a pure permutation)
     idx = jnp.asarray(idx_np)                                    # (P, M)

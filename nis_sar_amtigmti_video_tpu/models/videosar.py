@@ -5,7 +5,7 @@ SURVEY.md §3.3): a 5 s collect at PRF 5 kHz becomes 50 half-second CPIs at
 10 fps (80% overlap), each focused by moving-grid backprojection (mBP),
 standard BP, or CSA.
 
-TPU design: each pulse of the collect is simulated exactly once — the stream
+Design: each pulse of the collect is simulated exactly once — the stream
 is synthesized in step-sized segments that a rolling cache assembles into the
 80%-overlapped CPIs (5 overlapping frames share every segment; re-simulating
 per frame would multiply the dominant echo cost ~5x). Formation is vmapped
@@ -37,6 +37,11 @@ from nis_sar_amtigmti_video_tpu.scene.targets import PointTargets
 from nis_sar_amtigmti_video_tpu.parallel import pipeline
 from nis_sar_amtigmti_video_tpu.video import scheduler
 from nis_sar_amtigmti_video_tpu.utils import cplx
+
+
+# fast-BP backend name -> ops/bp_fast.py accumulate
+_FAST_ACC = {"fast": "xla", "fast_factor": "factor", "fast_factor2": "factor2"}
+BP_BACKENDS = ("exact",) + tuple(_FAST_ACC)
 
 
 class VideoFrames(NamedTuple):
@@ -84,36 +89,19 @@ def form_frames_bp(raw_frames, pos_frames, vel_frames, t_frames, vel_focus,
     (ops/bp_fast.py, one shared static ``plan`` for every CPI — build it
     with bp_fast.make_plan over the whole collect's trajectory; the range
     matched filter fuses into its recentre FFT, so raw pulses go in).
-    'fast_pallas' adds the pixel-tile kernel; the 'fast_factor*' variants
-    select the factorized (sub-aperture) accumulate — 'fast_factor'
-    (XLA), 'fast_factor_pallas' (+ pallas recentre), 'fast_factor2' /
-    'fast_factor2_pallas' (two-level factorization, the fastest measured
-    path where plan.sub_raw1 > 0) — the production paths (the plan must
-    be built with factorize=True). The measured-loser 'factor_kernel'
-    accumulate is quarantined to the ops layer (docs/PERF_GUIDE.md
-    "Variant retirement policy").
+    The 'fast_factor*' variants select the factorized (sub-aperture)
+    accumulate — 'fast_factor' (single level) and 'fast_factor2'
+    (two-level, where plan.sub_raw1 > 0) — the production paths (the plan
+    must be built with factorize=True).
 
-    ``spectra_frames`` (F, cpi, nfft/128, 256): per-frame slices of cached
+    ``spectra_frames`` (F, cpi, nfft): per-frame slices of cached
     forward spectra (bp_fast.forward_spectra) — the streaming path for
     overlapped CPIs; ``raw_frames`` is then ignored (pass None) and only
     the recentre ramp/presum/inverse run per frame."""
-    acc_map = {"fast": "xla", "fast_pallas": "pallas",
-               "fast_factor": "factor",
-               "fast_factor_pallas": "factor_pallas",
-               "fast_factor2": "factor2",
-               "fast_factor2_pallas": "factor2_pallas"}
-    if backend != "exact" and backend not in acc_map:
-        # an unknown name must NOT fall through to the drastically slower
-        # exact path with different numerics; in particular the retired
-        # 'fast_factor_kernel' is ops-layer-only now (docs/PERF_GUIDE.md
-        # "Variant retirement policy")
-        raise ValueError(
-            f"unknown BP backend {backend!r}: pick 'exact' or one of "
-            f"{sorted(acc_map)}"
-            + (" ('fast_factor_kernel' was retired to the ops layer — "
-               "docs/PERF_GUIDE.md 'Variant retirement policy')"
-               if backend == "fast_factor_kernel" else ""))
-    acc = acc_map.get(backend)
+    if backend not in BP_BACKENDS:
+        raise ValueError(f"unknown BP backend {backend!r}; options: "
+                         f"{', '.join(BP_BACKENDS)}")
+    acc = _FAST_ACC.get(backend)
     fast = acc is not None
     if spectra_frames is not None and not fast:
         raise ValueError("spectra_frames needs a fast-BP backend")
@@ -185,12 +173,10 @@ def run(sc: ScenarioConfig, targets: PointTargets, *, heading_deg: float = 0.0,
     fold the *schedule* frame index, not the batch position.
 
     bp_backend: 'fast' (default — gather-free iso-range BP, ops/bp_fast.py),
-    'fast_pallas' (the pixel-tile + fused-FFT pallas kernels),
-    'fast_factor' (factorized sub-aperture accumulation — the round-3
-    production path: resolves to the two-level factorization + pallas
-    recentre on TPU where the plan supports them, the XLA factor path
-    elsewhere), or 'exact' (reference-semantics per-pixel path, ops/bp.py).
-    Unsupported plan shapes fall back toward 'fast'.
+    'fast_factor' (factorized sub-aperture accumulation: resolves to the
+    accumulate the plan supports best, bp_fast.pick_accumulate), or
+    'exact' (reference-semantics per-pixel path, ops/bp.py). Unsupported
+    plan shapes fall back toward 'fast'.
 
     noise_mode: 'per_frame' draws fresh noise on each assembled CPI — the
     reference semantics (shared pulses get DIFFERENT noise in overlapping
@@ -202,15 +188,14 @@ def run(sc: ScenarioConfig, targets: PointTargets, *, heading_deg: float = 0.0,
     stream_spectra: cache each pulse's matched-filtered forward FFT
     (bp_fast.forward_spectra) across the 80%-overlapped frames, so the
     frame-independent half of the fast-BP recentre runs once per pulse
-    per collect instead of once per frame. Needs a fast BP backend, a
-    kernel-supported FFT length and noise_mode='per_segment'.
-    ``'ring'`` additionally keeps the cached-spectra window as a
-    device-resident RING buffer advanced by one dynamic_update_slice per
-    frame (131 MB written/step at reference scale) instead of
-    re-concatenating the ~655 MB window every frame — the sequential
-    streaming product path (29.3 vs 36.0 ms/frame measured on v5e;
-    frames form one at a time, so ``frames_per_batch`` is ignored).
-    Needs contiguous schedule frames and step % presum == 0.
+    per collect instead of once per frame. Needs a fast BP backend and
+    noise_mode='per_segment'. ``'ring'`` additionally keeps the
+    cached-spectra window as a device-resident RING buffer advanced by one
+    dynamic_update_slice per frame (a step's spectra written per frame at
+    reference scale) instead of re-concatenating the whole window every
+    frame — the sequential streaming product path (frames form one at a
+    time, so ``frames_per_batch`` is ignored). Needs contiguous schedule
+    frames and step % presum == 0.
     """
     r, g, v = sc.radar, sc.geometry, sc.video
     sched = scheduler.make_schedule(v, r.prf_hz)
@@ -248,38 +233,18 @@ def run(sc: ScenarioConfig, targets: PointTargets, *, heading_deg: float = 0.0,
     presum = sc.processing.bp_presum or bp_ops.presum_factor(
         p_bp, r.prf_hz, r.wavelength_m, g.slant_range_m,
         g.effective_velocity_mps)
+    if bp_backend not in BP_BACKENDS:
+        raise ValueError(f"unknown BP backend {bp_backend!r}; options: "
+                         f"{', '.join(BP_BACKENDS)}")
     bp_plan = None
     if algorithm in ("mbp", "stdbp") and bp_backend.startswith("fast"):
         # one static plan for the whole collect (per-CPI geometry is traced)
         factor = bp_backend.startswith("fast_factor")
-        bp_plan = bp_fast.make_plan(
-            p_bp, traj.positions, traj.times, float(t0),
-            w_win=64 if bp_backend == "fast_pallas" else 32,
-            factorize=factor)
-        if factor and bp_plan.sub_raw == 0:
-            bp_backend = "fast"        # bounds refused: plain fast path
-            factor = False
-        if bp_backend == "fast_factor":
-            # resolve to the best *measured* concrete factor accumulate:
-            # two-level XLA factorization where the plan supports it (36.0
-            # vs 39.2 ms/frame at reference scale), single-level otherwise;
-            # the coarse-tile kernel stays an explicit opt-in (it measured
-            # slower e2e — docs/ROUND3_NOTES.md §9)
-            if jax.default_backend() == "tpu":
-                from nis_sar_amtigmti_video_tpu.ops.pallas import fft_kernel
-                if fft_kernel.supported(bp_plan.nfft):
-                    bp_backend = ("fast_factor2_pallas"
-                                  if bp_plan.sub_raw1 > 0
-                                  else "fast_factor_pallas")
-            elif bp_plan.sub_raw1 > 0:
-                bp_backend = "fast_factor2"
-        if bp_backend == "fast_pallas":
-            from nis_sar_amtigmti_video_tpu.ops.pallas import bp_kernel
-            if (not bp_kernel.supported(bp_plan)
-                    or jax.default_backend() != "tpu"):
-                bp_backend = "fast"
-                bp_plan = bp_fast.make_plan(p_bp, traj.positions,
-                                            traj.times, float(t0))
+        bp_plan = bp_fast.make_plan(p_bp, traj.positions, traj.times,
+                                    float(t0), factorize=factor)
+        if factor:
+            bp_backend = {acc: name for name, acc in _FAST_ACC.items()}[
+                bp_fast.pick_accumulate(bp_plan)]
 
     # Overlapped CPIs share pulses: synthesize the stream once, in step-sized
     # segments, and assemble each frame from its cached segments (the default
@@ -295,7 +260,6 @@ def run(sc: ScenarioConfig, targets: PointTargets, *, heading_deg: float = 0.0,
     if noise_mode not in ("per_frame", "per_segment"):
         raise ValueError(f"unknown noise_mode {noise_mode!r}")
     if stream_spectra:
-        from nis_sar_amtigmti_video_tpu.ops.pallas import fft_kernel
         if algorithm not in ("mbp", "stdbp") \
                 or not bp_backend.startswith("fast"):
             raise ValueError("stream_spectra needs a fast-BP backend "
@@ -306,10 +270,6 @@ def run(sc: ScenarioConfig, targets: PointTargets, *, heading_deg: float = 0.0,
                 "stream_spectra caches per-pulse forward spectra across "
                 "overlapped frames, so noise must be drawn per pulse: pass "
                 "noise_mode='per_segment'")
-        if not fft_kernel.supported(bp_plan.nfft):
-            raise ValueError(
-                f"stream_spectra: plan nfft={bp_plan.nfft} outside the FFT "
-                "kernel's supported range")
         if not use_segments:
             raise ValueError("stream_spectra needs a segment-aligned "
                              "schedule (cpi/starts multiples of the step)")
@@ -393,11 +353,7 @@ def run(sc: ScenarioConfig, targets: PointTargets, *, heading_deg: float = 0.0,
         # spec_buf serializes frames, so no batching/pipelining applies;
         # JAX async dispatch still overlaps host frame fetch with device
         # formation.
-        acc = {"fast": "xla", "fast_pallas": "pallas",
-               "fast_factor": "factor",
-               "fast_factor_pallas": "factor_pallas",
-               "fast_factor2": "factor2",
-               "fast_factor2_pallas": "factor2_pallas"}[bp_backend]
+        acc = _FAST_ACC[bp_backend]
         fs = 16 if acc.startswith("factor") else 0
         vfj = jnp.asarray(vel_focus)
 
@@ -405,7 +361,7 @@ def run(sc: ScenarioConfig, targets: PointTargets, *, heading_deg: float = 0.0,
         def ring_step(spec_buf, wp, new_spec, po, ve, ts):
             zero = jnp.zeros((), wp.dtype)
             spec_buf = jax.lax.dynamic_update_slice(spec_buf, new_spec,
-                                                    (wp, zero, zero))
+                                                    (wp, zero))
             wp = (wp + step) % sched.cpi_pulses
             img = bp_fast.focus_bp_fast(
                 None, po, ve, ts, vfj, float(t0), p_bp, presum=presum,

@@ -1,4 +1,4 @@
-// Native runtime support for the TPU SAR framework.
+// Native runtime support for the SAR framework.
 //
 // Two host-side hot paths live here, off the Python GIL:
 //

@@ -6,9 +6,9 @@ radial-velocity Doppler re-centering t_shift = -fc*(2 v_rad/c)/Kr, stop-and-go
 Rx advance, fractional-sample lookup at (index - 0.5) with zero fill
 (grid_sample semantics), phase rotation exp(j*2*pi*fc*tau), coherent pulse sum.
 
-TPU design — delta-range arithmetic
------------------------------------
-A v5e has no fast float64, but BP needs mm-scale range accuracy at ~507 km.
+Design — delta-range arithmetic
+-------------------------------
+BP needs mm-scale range accuracy at ~507 km without f64 on the pixel grid.
 Instead of |g - p| in f64, ranges are computed as d = d0 + delta, where
 d0 = |p| (slant range to the scene origin) is a per-pulse float64 scalar
 folded into a wrapped carrier phase, and
@@ -18,7 +18,7 @@ folded into a wrapped carrier phase, and
 is computed in float32: every f32 quantity is either small (pixel coords,
 velocity offsets) or enters only through dot products with small vectors, so
 absolute range error stays ~1e-4 m (phase ~0.01 rad, incoherent across the
-aperture). The hot loop is pure f32/c64 VPU work over (pulse-block x pixel)
+aperture). The hot loop is pure f32/c64 work over (pulse-block x pixel)
 tiles via ``lax.scan``. ``dtype=f64`` runs the same code in float64 for
 golden tests.
 """
@@ -219,7 +219,7 @@ def presum_recenter(rc, sat_pos, sat_vel, t_slow, vel_focus, t_start,
     and carrier so the output is a valid pulse set at PRF/d for
     :func:`backproject`.
 
-    This is the TPU answer to BP's gather wall: per-pixel gathers scale with
+    This is the answer to BP's gather cost: per-pixel gathers scale with
     pulses x pixels, and the scene's residual Doppler band after recentring
     is tiny compared to the PRF (validated by :func:`presum_factor`), so
     decimating slow time first cuts the whole BP cost by ~d with sub-0.5 dB

@@ -1,11 +1,11 @@
-"""Gather-free fast backprojection (the TPU answer to ``tdbp_gpu``).
+"""Gather-free fast backprojection (the counterpart of ``tdbp_gpu``).
 
 Why
 ---
-Classic per-pixel BP needs ``pulses x pixels`` fractional-sample lookups;
-on TPU arbitrary gathers cost ~35 ns/element, so the reference workload
-(512^2 x 2,500 pulses, sar_batch_sim.py:171-238) spends ~10 s in gathers
-alone. This module removes *every* per-pixel gather:
+Classic per-pixel BP needs ``pulses x pixels`` fractional-sample lookups
+(512^2 x 2,500 pulses at the reference workload, sar_batch_sim.py:171-238).
+This module removes *every* per-pixel gather and turns the work into
+FFTs, elementwise trig and batched matmuls:
 
 1. **Recentre + presum** (ops/bp.py machinery): every pulse is resampled so
    the scene origin sits at a fixed sample bin, then slow time is coherently
@@ -25,7 +25,7 @@ alone. This module removes *every* per-pixel gather:
                       ------------------------------   -------------------
                             per-(t,y) ramp                per-t kernel
 
-   — a per-pulse (ny x W) @ (W x nx) complex matmul on the MXU.
+   — a per-pulse (ny x W) @ (W x nx) complex matmul.
 4. **Phase** exp(j*phi[t,y,x]) is evaluated per pixel (that is the azimuth
    focusing) from a per-(t,y) quadratic-in-x fit of the exact f64 phase;
    cubic residuals are < 1e-3 rad at the reference geometry.
@@ -182,7 +182,7 @@ def _factor_bounds(p: BpParams, sat_pos: np.ndarray, ny_i: int, nx_i: int,
 
 # merge-stage interpolation kernel (continuous Kaiser-windowed sinc): for
 # inner-sum content held under 0.8 * coarse Nyquist these constants measure
-# ~-100 dB reconstruction error (probe in this module's round-3 notes)
+# ~-100 dB reconstruction error
 _UPS_FC = 0.4      # lowpass cutoff [cycles / coarse sample]
 _UPS_D = 10        # one-sided support [coarse samples]
 _UPS_BETA = 10.0   # Kaiser shape
@@ -261,15 +261,14 @@ def make_plan(p: BpParams, sat_pos: np.ndarray, t_slow: np.ndarray,
     margin_cols = 12 + (64 if factorize else 0)
     ny_req = 2 * (int(np.ceil(b_half / dy_min)) + margin_rows)
     nx_i = 2 * (int(np.ceil(a_half / dx_m)) + margin_cols)
-    nx_i = -(-nx_i // 128) * 128          # 128-multiples: pallas tile grids
+    nx_i = -(-nx_i // 128) * 128          # 128-multiples
 
     nfft = 1 << (p.num_samples - 1).bit_length()
     d0 = np.linalg.norm(sat_pos, axis=1)
     t_ref = float(2.0 * np.mean(d0) / _C)
     n_org = (t_ref - float(t_start)) * p.fs_hz
-    # prefer a 128-multiple row count (pallas tile grids); fall back to the
-    # minimal 8-multiple when the padded band would overflow the window
-    # (tiny test scenes — the pallas path then reports unsupported)
+    # prefer a 128-multiple row count; fall back to the minimal 8-multiple
+    # when the padded band would overflow the window (tiny test scenes)
     # The fused matched filter (compress=True) is a circular convolution at
     # nfft. The linear convolution of the ns-sample window with the
     # n_ref-sample chirp spans ns + n_ref - 1 samples, so the circular wrap
@@ -308,7 +307,7 @@ def make_plan(p: BpParams, sat_pos: np.ndarray, t_slow: np.ndarray,
     sub_raw = nx_c = 0
     sub_raw1 = nx_c1 = grp = 0
     if factorize:
-        # coarse columns: lane-multiple, ~4-6x coarser than the fine grid
+        # coarse columns: a 128-multiple, ~4-6x coarser than the fine grid
         nx_c = 128 if nx_i >= 512 else max(32, nx_i // 4)
         h = nx_i / nx_c
         row_dir_c, col_dir_c, u_gc = _look_geometry(
@@ -466,7 +465,7 @@ def _fit_coeffs(pos2, vel2, t2, vel_focus, p: BpParams, plan: FastBpPlan,
 
     ``fit_stride`` > 0 evaluates the exact f64 physics only at anchor
     pulses every ``fit_stride`` rows and quadratically interpolates the
-    unwrapped (index, phase) fields in slow time — the emulated-f64
+    unwrapped (index, phase) fields in slow time — the f64
     geometry is the fit's whole cost, and the fields' cubic-in-t residual
     over a 2*stride window is ~1e-5 rad / ~1e-6 samples at the reference
     geometry (phase jerk ~700 rad/s^3), far inside the oracle budgets.
@@ -506,9 +505,8 @@ def _fit_coeffs(pos2, vel2, t2, vel_focus, p: BpParams, plan: FastBpPlan,
         # Interpolate the DERIVED coefficients, not the raw (P, ny, 3) f64
         # fields: the quadratic interpolation is linear, so it commutes
         # with the differencing below, and every derived quantity except
-        # the unwrapped pa is small enough for f32 — the emulated-f64
-        # (P, ny, 3) multiply-add chains were most of the fit's cost
-        # (scripts/probe_bp_fs.py: interpolation ~9 of the 10.5 ms).
+        # the unwrapped pa is small enough for f32, so the (P, ny, 3)
+        # multiply-add chains need no f64.
         w64 = jnp.asarray(w_np)                               # (P, 3) f64
         a0, a1, a2 = (jnp.asarray(trip[:, k]) for k in range(3))
 
@@ -577,13 +575,13 @@ def _taper(u, w: int, power: int):
 def _extract_windows(band, plan: FastBpPlan):
     """(P, n_band) -> (P, ny_i, W), gather-free AND stride-free.
 
-    The W-strided-slice formulation (one slice per window column) was the
-    round-2 window-DMA floor: W strided HBM reads of 8-byte elements at a
-    96-byte pitch. Because consecutive windows advance by a fixed stride k,
-    the same windows are ceil(W/k) *contiguous* row-shifted views of the
-    band reshaped to k-wide blocks: window y = [blk[y], blk[y+1], ...,
-    blk[y+nb-1][:W-(nb-1)k]] — nb big sequential slices + one concat
-    instead of W strided passes. Bit-identical output."""
+    The W-strided-slice formulation (one slice per window column) costs W
+    strided reads of 8-byte elements at a 96-byte pitch. Because
+    consecutive windows advance by a fixed stride k, the same windows are
+    ceil(W/k) *contiguous* row-shifted views of the band reshaped to k-wide
+    blocks: window y = [blk[y], blk[y+1], ..., blk[y+nb-1][:W-(nb-1)k]] —
+    nb big sequential slices + one concat instead of W strided passes.
+    Bit-identical output."""
     ny, w, k = plan.ny_i, plan.w_win, plan.stride
     nb = -(-w // k)
     need = (ny + nb - 1) * k
@@ -626,15 +624,12 @@ def _window_filter(w: int, k: int, taper_pow: int) -> np.ndarray:
 
 def _window_spectra(band, plan: FastBpPlan):
     """(T, n_band) complex -> (T, w, ny) tapered window spectra via ONE
-    strided MXU convolution straight from the flat band.
+    strided convolution straight from the flat band.
 
     Numerically equal (f32 class) to transposing
     ``fft(_extract_windows(band) * tap, axis=-1) / w`` to (t, m, y) — but
-    with no (.., ny, w) intermediates: on TPU any array whose minor
-    dimension is w=32 (or the k-wide block views) is physically padded to
-    128 lanes, and the round-3 ablation (scripts/probe_bp_factor_base.py)
-    showed that layout tax alone cost ~13 ms/frame at reference scale.
-    Here both conv operands and the output keep a full-length minor dim.
+    with no (.., ny, w) intermediates: both conv operands and the output
+    keep a full-length minor dim.
     """
     w, k = plan.w_win, plan.stride
     filt = jnp.asarray(_window_filter(w, k, plan.taper_pow))
@@ -709,14 +704,15 @@ def _taper_field(u0_b, e_t, w: int, taper_pow: int):
 
 def _cein_tyx(g, kern, prec: str):
     """The factor-accumulate's (t,m,y)x(t,m,x)->(t,y,x) complex einsum with
-    managed precision. HIGHEST costs 6 bf16 MXU passes per real dot (24
-    total for complex); 'bf16x3' is the hi/lo split (~5e-6, 12 passes);
-    'default' the single lossy pass (~2.6e-3, 4)."""
+    stated precision: 'highest' is full f32; 'bf16x3' is the explicit
+    bf16 hi/lo split (~5e-6); 'default' is the backend's fastest f32 class
+    (TF32 on the GPU, ~1e-3)."""
     if prec == "highest":
         return jnp.einsum("tmy,tmx->tyx", g, kern,
                           precision=jax.lax.Precision.HIGHEST)
     if prec == "default":
-        return jnp.einsum("tmy,tmx->tyx", g, kern)
+        return jnp.einsum("tmy,tmx->tyx", g, kern,
+                          precision=jax.lax.Precision.DEFAULT)
     ein = partial(jnp.einsum, "tmy,tmx->tyx",
                   preferred_element_type=jnp.float32)
 
@@ -736,7 +732,7 @@ def _cein_tyx(g, kern, prec: str):
 def _accumulate_factor(rc2, u0, pa, pb, pc, b_t, c_t, plan: FastBpPlan,
                        sub_p: int, einsum_prec: str = "highest"):
     """Factorized (sub-aperture) accumulation — the algorithmic answer to
-    the per-pulse-per-pixel trig floor (docs/ROUND2_NOTES.md §14).
+    the per-pulse-per-pixel trig floor.
 
     Within a sub-aperture of ``sub_p`` presummed pulses, split each pulse's
     focusing phase against the sub-aperture *anchor* (centre) pulse:
@@ -827,7 +823,7 @@ def _accumulate_factor(rc2, u0, pa, pb, pc, b_t, c_t, plan: FastBpPlan,
 def _accumulate_factor2(rc2, u0, pa, pb, pc, b_t, c_t, plan: FastBpPlan,
                         sub_p1: int, grp: int,
                         einsum_prec: str = "highest"):
-    """Two-level factorized accumulation (the round-3 follow-through to
+    """Two-level factorized accumulation (the follow-through to
     :func:`_accumulate_factor`).
 
     Every per-pulse cost of the single-level path — the inner-sum trig and
@@ -975,6 +971,39 @@ def _resample_output(img_i, plan: FastBpPlan, p: BpParams, rdir, cdir, dy_m):
 # public entry points
 # --------------------------------------------------------------------------
 
+ACCUMULATES = ("xla", "factor", "factor2")
+
+
+def pick_accumulate(plan: FastBpPlan) -> str:
+    """The accumulate a factorized plan supports best: the two-level
+    factorization where the plan sized a second level, the single level
+    where it sized one, the plain scan otherwise."""
+    if plan.sub_raw1 > 0:
+        return "factor2"
+    return "factor" if plan.sub_raw > 0 else "xla"
+
+
+def accumulate_image(rc2, coeffs, plan: FastBpPlan, accumulate: str,
+                     presum: int = 1, einsum_prec: str = "highest"):
+    """Internal (ny_i, nx_i) image from recentred pulses ``rc2`` and the
+    fit ``coeffs`` = (u0, pa, pb, pc, b_t, c_t) by the selected
+    accumulate ('xla' scan, 'factor' or 'factor2' — the factorized forms
+    fall back toward the plain scan when the plan sized no such level)."""
+    if accumulate not in ACCUMULATES:
+        raise ValueError(f"unknown BP accumulate {accumulate!r}; options: "
+                         f"{', '.join(ACCUMULATES)}")
+    d = max(1, presum)
+    if accumulate == "factor2" and plan.sub_raw1 > 0:
+        return _accumulate_factor2(rc2, *coeffs, plan,
+                                   max(1, plan.sub_raw1 // d), plan.grp,
+                                   einsum_prec=einsum_prec)
+    if accumulate != "xla" and plan.sub_raw > 0:
+        return _accumulate_factor(rc2, *coeffs, plan,
+                                  max(1, plan.sub_raw // d),
+                                  einsum_prec=einsum_prec)
+    return _accumulate(rc2, *coeffs, plan)
+
+
 @partial(jax.jit, static_argnames=("p", "plan", "presum", "compress",
                                    "accumulate", "fit_stride", "math_mode"))
 def backproject_fast(rc, sat_pos, sat_vel, t_slow, vel_focus, p: BpParams,
@@ -992,105 +1021,58 @@ def backproject_fast(rc, sat_pos, sat_vel, t_slow, vel_focus, p: BpParams,
 
     ``compress=True`` takes *raw* pulses and fuses the range matched filter
     into the recentre FFT round trip — at the production 22,004-sample shape
-    this removes two Bluestein FFT passes (the power-of-two padded filter is
-    the linear-convolution variant; see :func:`recenter_presum`).
+    this removes two non-power-of-two FFT passes (the power-of-two padded
+    filter is the linear-convolution variant; see :func:`recenter_presum`).
 
-    ``math_mode``: 'exact' keeps the bf16x3-managed recentre dots and the
-    HIGHEST factor einsum (f32-grade, the tested default); 'fast' drops
-    both to single-pass bf16-input MXU dots (~3e-3 field rel-err,
-    measured at reference scale by scripts/probe_bp_knobs.py) for the
-    streaming-VideoSAR throughput path.
+    ``math_mode``: 'exact' keeps the factor einsums and merge matmuls at
+    HIGHEST (f32-grade, the tested default); 'fast' runs them at the
+    backend's DEFAULT precision (TF32 on the GPU) for the streaming-VideoSAR
+    throughput path.
 
-    ``raw_spectra``: cached (P, nfft/128, 256) forward spectra from
-    ops/pallas/fft_kernel.py::forward_spectra_pallas (matched filter
-    fused). Overlapped VideoSAR CPIs (80%: sar_batch_sim.py:244-252) share
-    pulses, so the forward transform — the frame-independent half of the
-    recentre pass — is computed once per pulse per collect; only the
-    recentre ramp, presum and inverse run per frame. Requires compress=True
-    and a kernel-supported plan.nfft; ``rc`` is ignored (pass None).
+    ``raw_spectra``: cached (P, nfft) forward spectra from
+    :func:`forward_spectra` (matched filter fused). Overlapped VideoSAR
+    CPIs (80%: sar_batch_sim.py:244-252) share pulses, so the forward
+    transform — the frame-independent half of the recentre pass — is
+    computed once per pulse per collect; only the recentre ramp, presum and
+    inverse run per frame (:func:`recentre_from_spectra`). Requires
+    compress=True; ``rc`` is ignored (pass None).
 
     ``ring_offset`` (traced i32, pulses, a multiple of ``presum``): marks
     ``raw_spectra`` as a RING buffer — slot j holds chronological pulse
     (j - ring_offset) % P. The streaming product then advances its cached
     spectra window with one dynamic_update_slice per step instead of
-    re-concatenating the full multi-hundred-MB window every frame (see
-    recentre_from_spectra_pallas). Needs P divisible by presum*groups, so
-    the recentre group count is auto-lowered to the largest supported
-    divisor.
+    re-concatenating the full multi-hundred-MB window every frame.
     """
-    fast_math = math_mode == "fast"
+    if math_mode not in ("exact", "fast"):
+        raise ValueError(f"unknown math_mode {math_mode!r}; options: "
+                         "exact, fast")
     pos = jnp.asarray(sat_pos, jnp.float64)
     vel = jnp.asarray(sat_vel, jnp.float64)
     ts = jnp.asarray(t_slow, jnp.float64)
     vf = jnp.asarray(vel_focus, jnp.float64)
     t_mean_v = jnp.mean(ts) if t_mean is None else t_mean
-
-    if jax.default_backend() != "tpu":   # Mosaic needs a TPU (csa.py guard
-        if accumulate == "pallas":       # pattern); '*_interpret' modes stay
-            accumulate = "xla"           # available for tests anywhere
-        elif accumulate in ("factor_pallas", "factor_kernel"):
-            accumulate = "factor"
-        elif accumulate == "factor2_pallas":
-            accumulate = "factor2"
-    use_pallas = accumulate in ("pallas", "pallas_interpret")
-    use_fkern = accumulate in ("factor_kernel", "factor_kernel_interpret")
-    use_pfft = (use_pallas or accumulate in ("factor_pallas",
-                                             "factor2_pallas")
-                or (use_fkern and accumulate == "factor_kernel"))
-    interp = accumulate.endswith("_interpret")
     scope = jax.named_scope
-    if (use_pfft and compress) or raw_spectra is not None:
-        from nis_sar_amtigmti_video_tpu.ops.pallas import fft_kernel
     plan_acc = plan    # the plan the accumulate slices rc2 with (see below)
     with scope("bp_compress_recentre_presum"):
         if raw_spectra is not None:
-            if not (compress and fft_kernel.supported(plan.nfft)):
+            if not compress:
+                raise ValueError("raw_spectra needs compress=True")
+            if raw_spectra.shape[1] != plan.nfft:
                 raise ValueError(
-                    "raw_spectra needs compress=True and a kernel-supported "
-                    f"plan.nfft (got nfft={plan.nfft})")
-            if raw_spectra.shape[1] * 128 != plan.nfft:
-                raise ValueError(
-                    f"raw_spectra rows ({raw_spectra.shape[1]}) do not match "
-                    f"plan.nfft={plan.nfft}: the spectra were built from "
-                    "pulses with a different num_samples than the plan's")
-            band_end = (plan.band_start + plan.stride * (plan.ny_i - 1)
-                        + plan.w_win)
-            p0 = plan.band_start // 128
-            p1 = -(-band_end // 128)
-            grp = 8 if fast_math else 2
-            if ring_offset is not None:
-                d_ps = max(1, presum)
-                num_p = raw_spectra.shape[0]
-                grp = next((g for g in (grp, 5, 4, 2, 1)
-                            if num_p % (d_ps * g) == 0), 1)
-            rc2, pos2, vel2, t2 = fft_kernel.recentre_from_spectra_pallas(
+                    f"raw_spectra length ({raw_spectra.shape[1]}) does not "
+                    f"match plan.nfft={plan.nfft}: the spectra were built "
+                    "from pulses with a different num_samples than the "
+                    "plan's")
+            # only the iso-range band the accumulate reads comes back; rc2
+            # is then band-relative, so only the accumulate's slicing plan
+            # shifts (plan_acc) — the coefficient fit keeps the absolute-
+            # sample plan (u0 is idx - row0 with BOTH terms absolute)
+            band = (plan.band_start, plan.band_start
+                    + plan.stride * (plan.ny_i - 1) + plan.w_win)
+            rc2, pos2, vel2, t2 = recentre_from_spectra(
                 raw_spectra, pos, vel, ts, vf, p, max(1, presum), plan.t_ref,
-                # interpret off-TPU: the streaming path has no XLA twin, so
-                # CPU tests run the same kernel through the interpreter
-                interpret=interp or jax.default_backend() != "tpu",
-                t_mean=t_mean_v, out_rows=(p0, p1),
-                mode="bf16" if fast_math else "bf16x3",
-                groups=grp, ring_offset=ring_offset)
-            plan_acc = _dc_replace(plan,
-                                   band_start=plan.band_start - p0 * 128)
-        elif use_pfft and compress and fft_kernel.supported(plan.nfft):
-            # band-limit the kernel's inverse transform to the 128-aligned
-            # rows the accumulate actually reads (exact — fewer output rows
-            # computed, ~2.6x less inverse MXU + HBM at reference scale).
-            # rc2 is then band-relative: only the accumulate's slicing plan
-            # shifts (plan_acc); the coefficient fit keeps the absolute-
-            # sample plan (u0 is idx - row0 with BOTH terms absolute).
-            band_end = (plan.band_start + plan.stride * (plan.ny_i - 1)
-                        + plan.w_win)
-            p0 = plan.band_start // 128
-            p1 = -(-band_end // 128)
-            rc2, pos2, vel2, t2 = fft_kernel.recenter_presum_pallas(
-                rc, pos, vel, ts, vf, p, max(1, presum), plan.t_ref,
-                interpret=interp, t_mean=t_mean_v, out_rows=(p0, p1),
-                mode="bf16" if fast_math else "bf16x3",
-                groups=8 if fast_math else 2)
-            plan_acc = _dc_replace(plan,
-                                   band_start=plan.band_start - p0 * 128)
+                t_mean=t_mean_v, out_band=band, ring_offset=ring_offset)
+            plan_acc = _dc_replace(plan, band_start=0)
         else:
             ref_conj = (matched_filter_spectrum(p, plan.nfft)
                         if compress else None)
@@ -1100,40 +1082,14 @@ def backproject_fast(rc, sat_pos, sat_vel, t_slow, vel_focus, p: BpParams,
                                                   t_mean=t_mean_v)
     with scope("bp_fit_coefficients"):
         rdir, cdir, dy_m = _frame_geometry(pos2[pos2.shape[0] // 2], p, plan)
-        u0, pa, pb, pc, b_t, c_t = _fit_coeffs(pos2, vel2, t2, vf, p, plan,
-                                               t_mean_v, rdir, cdir, dy_m,
-                                               fit_stride=fit_stride)
+        coeffs = _fit_coeffs(pos2, vel2, t2, vf, p, plan, t_mean_v, rdir,
+                             cdir, dy_m, fit_stride=fit_stride)
     with scope("bp_accumulate"):
-        if use_pallas:
-            from nis_sar_amtigmti_video_tpu.ops.pallas import bp_kernel
-            img_i = bp_kernel.accumulate_pallas(
-                rc2, u0, pa, pb, pc, b_t, c_t, plan_acc, interpret=interp)
-        elif use_fkern and plan.sub_raw > 0:
-            from nis_sar_amtigmti_video_tpu.ops.pallas import bp_factor_kernel
-            sub_p = max(1, plan.sub_raw // max(1, presum))
-            if bp_factor_kernel.supported(plan_acc):
-                img_i = bp_factor_kernel.accumulate_factor_pallas(
-                    rc2, u0, pa, pb, pc, b_t, c_t, plan_acc, sub_p,
-                    mode="bf16" if fast_math else "bf16x3", interpret=interp)
-            else:                        # tiny test plans: XLA factor path
-                img_i = _accumulate_factor(
-                    rc2, u0, pa, pb, pc, b_t, c_t, plan_acc, sub_p,
-                    einsum_prec="default" if fast_math else "highest")
-        elif (accumulate in ("factor2", "factor2_pallas")
-              and plan.sub_raw1 > 0):
-            sub_p1 = max(1, plan.sub_raw1 // max(1, presum))
-            img_i = _accumulate_factor2(
-                rc2, u0, pa, pb, pc, b_t, c_t, plan_acc, sub_p1, plan.grp,
-                einsum_prec="default" if fast_math else "highest")
-        elif accumulate.startswith("factor") and plan.sub_raw > 0:
-            sub_p = max(1, plan.sub_raw // max(1, presum))
-            img_i = _accumulate_factor(
-                rc2, u0, pa, pb, pc, b_t, c_t, plan_acc, sub_p,
-                einsum_prec="default" if fast_math else "highest")
-        else:
-            img_i = _accumulate(rc2, u0, pa, pb, pc, b_t, c_t, plan_acc)
+        img_i = accumulate_image(
+            rc2, coeffs, plan_acc, accumulate, presum,
+            einsum_prec="default" if math_mode == "fast" else "highest")
 
-    return _finalize(img_i, (pa, pb, pc), pos2, vel2, t2, vf, t_mean_v,
+    return _finalize(img_i, coeffs[1:4], pos2, vel2, t2, vf, t_mean_v,
                      p, plan, rdir, cdir, dy_m)
 
 
@@ -1203,21 +1159,83 @@ def _finalize(img_i, phase_coeffs, pos2, vel2, t2, vf, t_mean_v, p: BpParams,
     return img * expj(ph_out)
 
 
-def forward_spectra(raw, p: BpParams, math_mode: str = "exact",
-                    interpret: bool | None = None):
-    """Cacheable forward half of the streaming fast-BP recentre: matched-
-    filtered forward spectra of raw pulses in the FFT kernel's layout
-    (ops/pallas/fft_kernel.py::forward_spectra_pallas). Feed slices of the
-    result to :func:`focus_bp_fast` / :func:`backproject_fast` via
+@partial(jax.jit, static_argnames=("p",))
+def forward_spectra(raw, p: BpParams):
+    """Cacheable forward half of the streaming fast-BP recentre: the
+    matched-filtered forward spectra (P, nfft) complex64 of raw pulses, in
+    natural FFT order at the plan's power-of-two length. Feed slices of
+    the result to :func:`focus_bp_fast` / :func:`backproject_fast` via
     ``raw_spectra=`` — overlapped VideoSAR CPIs then pay the forward
     transform once per pulse instead of once per frame."""
-    from nis_sar_amtigmti_video_tpu.ops.pallas import fft_kernel
-    if interpret is None:                 # no XLA twin: interpret off-TPU
-        interpret = jax.default_backend() != "tpu"
-    return fft_kernel.forward_spectra_pallas(
-        raw, p, filter_compress=True,
-        mode="bf16" if math_mode == "fast" else "bf16x3",
-        interpret=interpret)
+    nfft = 1 << (raw.shape[-1] - 1).bit_length()
+    ref_conj = matched_filter_spectrum(p, nfft)
+    return jnp.fft.fft(raw, n=nfft, axis=-1) * ref_conj[None, :]
+
+
+def recentre_from_spectra(spec, sat_pos, sat_vel, t_slow, vel_focus,
+                          p: BpParams, d: int, t_ref: float, t_mean=None,
+                          out_band: tuple[int, int] | None = None,
+                          ring_offset=None):
+    """Frame-dependent half of :func:`recenter_presum` (with the matched
+    filter fused) on cached spectra from :func:`forward_spectra`: recentre
+    ramp + carrier, frequency-domain presum by ``d``, inverse FFT. Same
+    return contract as recenter_presum: (rc2[P2, n], pos2, vel2, t2).
+
+    The presum runs before the inverse transform (both are linear), so
+    only P/d inverse FFTs run. ``out_band=(s0, s1)`` returns only samples
+    [s0, s1) of the recentred pulses (n = s1 - s0; the fast-BP accumulate
+    reads only the iso-range band); None returns all nfft.
+
+    ``ring_offset`` (traced i32 scalar, pulses, a multiple of ``d``): the
+    spectra buffer is a RING — slot ``j`` holds chronological pulse
+    ``(j - ring_offset) % P``. Only the per-pulse recentre scalars roll into
+    ring order here, and the small presummed output rolls back to
+    chronological order, so the (P, nfft) window is never copied. Requires
+    ``P % d == 0`` (no pad row may interleave the ring).
+    """
+    num_p, nfft = spec.shape
+    dt = t_slow - (jnp.mean(t_slow) if t_mean is None else t_mean)
+    org = vel_focus[None, :] * dt[:, None]
+    d0 = jnp.linalg.norm(sat_pos - org, axis=1)            # (P,) f64
+
+    p_pad = -(-num_p // d) * d
+    if ring_offset is not None and p_pad != num_p:
+        raise ValueError(
+            f"ring_offset needs P % d == 0 (a pad row would interleave the "
+            f"ring): P={num_p}, d={d}")
+    w = jnp.pad(jnp.ones((num_p,), jnp.float32), (0, p_pad - num_p))
+    sp = spec if p_pad == num_p else jnp.pad(
+        spec, ((0, p_pad - num_p), (0, 0)))
+    d0_p = jnp.pad(d0, (0, p_pad - num_p), mode="edge")
+    shift = (2.0 * d0_p / _C - t_ref) * p.fs_hz
+    car = _TWO_PI * (2.0 * p.fc_hz / _C) * d0_p
+    if ring_offset is not None:
+        # scalars are chronological; the spectra are in ring order — move
+        # the scalars to ring slots (roll(x, off)[j] = x[(j - off) % P])
+        shift, car = (jnp.roll(x, ring_offset, axis=0) for x in (shift, car))
+
+    def ramp(phase64):
+        ph = (phase64 - _TWO_PI * jnp.round(phase64 / _TWO_PI)
+              ).astype(jnp.float32)
+        return jax.lax.complex(jnp.cos(ph), jnp.sin(ph))
+
+    f_bins = jnp.fft.fftfreq(nfft)
+    sp = (sp * ramp(_TWO_PI * f_bins[None, :] * shift[:, None])
+          * (ramp(car) * w.astype(jnp.complex64))[:, None])
+    sp_b = sp.reshape(-1, d, nfft).sum(axis=1) / jnp.float32(d)
+    rc_b = jnp.fft.ifft(sp_b, axis=-1)
+    if out_band is not None:
+        s0, s1 = out_band
+        if not 0 <= s0 < s1 <= nfft:
+            raise ValueError(f"out_band {out_band} outside [0, {nfft}]")
+        rc_b = rc_b[:, s0:s1]
+    if ring_offset is not None:
+        # presummed row m covers ring slots [m*d, (m+1)*d) — roll the rows
+        # back to chronological order (ring_offset is a multiple of d, so no
+        # presum group straddles the ring seam)
+        rc_b = jnp.roll(rc_b, -(ring_offset // d), axis=0)
+    ci = np.minimum(np.arange(p_pad // d) * d + (d // 2), num_p - 1)
+    return rc_b.astype(jnp.complex64), sat_pos[ci], sat_vel[ci], t_slow[ci]
 
 
 def focus_bp_fast(raw, sat_pos, sat_vel, t_slow, vel_focus, t_start,
@@ -1228,9 +1246,7 @@ def focus_bp_fast(raw, sat_pos, sat_vel, t_slow, vel_focus, t_start,
     """Fused range compression + fast BP + presum rescale/droop (drop-in
     for ops/bp.py::focus_bp at production scale). The matched filter rides
     the recentre FFT (``compress=True``), so raw pulses see exactly one
-    fast-time FFT round trip end to end. ``accumulate='pallas'`` selects
-    the fused pixel-tile kernel (needs a w_win=64 plan; see
-    ops/pallas/bp_kernel.py). ``raw_spectra`` (from
+    fast-time FFT round trip end to end. ``raw_spectra`` (from
     :func:`forward_spectra`) skips the forward transform for streaming
     overlapped CPIs; ``raw`` may then be None, and ``ring_offset`` marks
     the spectra as a ring buffer (see :func:`backproject_fast`)."""
@@ -1239,7 +1255,6 @@ def focus_bp_fast(raw, sat_pos, sat_vel, t_slow, vel_focus, t_start,
     if plan is None:
         plan = make_plan(p, np.asarray(sat_pos), np.asarray(t_slow),
                          float(t_start),
-                         w_win=64 if accumulate.startswith("pallas") else 32,
                          factorize=accumulate.startswith("factor"))
     img = backproject_fast(raw, sat_pos, sat_vel, t_slow, vel_focus, p, plan,
                            presum=presum, compress=True,

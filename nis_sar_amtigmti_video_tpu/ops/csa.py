@@ -6,8 +6,8 @@ pointwise phase multiplies interleaved with azimuth/range FFT passes,
     az-FFT -> Phi1 (chirp scaling) -> rg-FFT -> Phi2 (range compression +
     bulk RCMC) -> rg-IFFT -> Phi3 (azimuth compression + residual) -> az-IFFT
 
-TPU design
-----------
+Design
+------
 * No fftshifts. The reference brackets every FFT with fftshift/ifftshift
   pairs and applies phases on shifted grids; the pairs are exact inverse
   permutations, so evaluating the phase functions on natural fftfreq ordering
@@ -105,8 +105,6 @@ def apply_csa(phist, phases: CsaPhases, fft_impl: str = "xla"):
     identical ordering to the reference, whose shift pairs cancel.
     ``fft_impl='mxu'`` uses the matmul FFT (ops/fft.py).
     """
-    import jax
-
     from nis_sar_amtigmti_video_tpu.ops.fft import get_impl
     fft, ifft = get_impl(fft_impl)
     # named scopes label the profiler trace (utils/profiling) per CSA stage
@@ -192,19 +190,7 @@ def _expj32(phase):
 def apply_csa_fused(phist, f: CsaFactors, fft_impl: str = "xla"):
     """Grid-free CSA: identical math to apply_csa with phases generated
     inline from the 1-D factors — XLA fuses trig+multiply into single passes
-    over the data, cutting HBM traffic by the three 2-D phase grids.
-
-    fft_impl='pallas' runs the fully fused VMEM megakernel
-    (ops/pallas/csa_kernel.py — one HBM round trip per axis pass) when the
-    shape qualifies, falling back to 'hybrid' otherwise."""
-    if fft_impl == "pallas":
-        import jax as _jax
-
-        from nis_sar_amtigmti_video_tpu.ops.pallas import csa_kernel
-        if (csa_kernel.supported(phist.shape[-2], phist.shape[-1])
-                and _jax.default_backend() == "tpu"):   # Mosaic needs a TPU
-            return csa_kernel.apply_csa_pallas(phist, f)
-        fft_impl = "auto"
+    over the data, cutting memory traffic by the three 2-D phase grids."""
     from nis_sar_amtigmti_video_tpu.ops.fft import get_impl
     fft, ifft = get_impl(fft_impl)
     u, fr = f.u[None, :], f.fr[None, :]
@@ -222,7 +208,7 @@ def apply_csa_fused(phist, f: CsaFactors, fft_impl: str = "xla"):
 
 def apply_csa_fused_t(phist, f: CsaFactors):
     """Fused CSA with a single transpose pair so *all four* FFTs run on the
-    layout-safe middle-axis MXU einsum (ops/fft.py::_fft_middle):
+    middle-axis matmul DFT (ops/fft.py::_fft_middle):
 
         az-FFT(mid) -> x Phi1 -> T -> rg-FFT(mid) -> x Phi2' -> rg-IFFT(mid)
         -> x Phi3' -> T -> az-IFFT(mid)

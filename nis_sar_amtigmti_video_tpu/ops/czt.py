@@ -1,7 +1,6 @@
 """Chirp-Z evaluation of trigonometric interpolants (Bluestein, FFT-only).
 
-TPU rationale: arbitrary-position resampling normally needs gathers (the
-gather wall, ~35 ns/element); when the evaluation positions form an
+Rationale: arbitrary-position resampling normally needs gathers; when the evaluation positions form an
 *arithmetic progression* ``start + step*k`` the periodic sinc interpolant can
 be evaluated exactly with three FFTs (Bluestein's chirp factorization
 nk = (n^2 + k^2 - (k-n)^2) / 2) — no gathers, no interpolation-kernel design

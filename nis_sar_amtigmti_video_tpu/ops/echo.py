@@ -8,14 +8,14 @@ engines (SURVEY.md §2.3): monostatic static/moving targets
 stop-and-go Rx correction (``sar_batch_sim.py:83-169``). Receive channels,
 target motion, antenna pattern and stop-and-go are options on the same kernel.
 
-TPU design
-----------
+Design
+------
 * Geometry (positions -> delays -> carrier phase) runs in float64: at ~507 km
   slant range the two-way phase needs sub-mm range accuracy. The carrier phase
   is wrapped mod 2pi in f64 and *then* cast to f32, so the large
   (pulses x targets x samples) tensor work is pure float32/complex64.
 * The pulse axis is processed by a ``lax.scan`` over fixed-size chunks with an
-  inner ``fori_loop`` over target chunks — static shapes, bounded VMEM/HBM
+  inner ``fori_loop`` over target chunks — static shapes, bounded memory
   footprint, no data-dependent control flow.
 * The slow-time (pulse) axis is the natural sharding axis ("seq"); callers
   shard by slicing trajectories per device (see parallel/).
@@ -35,6 +35,7 @@ import numpy as np
 from nis_sar_amtigmti_video_tpu.utils.cplx import expj
 
 _TWO_PI = 2.0 * math.pi
+BACKENDS = ("jnp", "freq")
 
 
 @dataclass(frozen=True)
@@ -62,23 +63,19 @@ class EchoOpts:
     # chunking (elements of the f32 work tensor per step ~ pulse_chunk*target_chunk*Ns)
     max_elements: int = 1 << 25
     target_chunk: int = 512
-    # 'jnp' (scan + XLA fusion) | 'pallas' (VMEM-resident fused kernel,
-    # ops/pallas/echo_kernel.py) | 'pallas_interpret' (testing) | 'freq'
-    # (NUFFT convolution + exact gate edges, ops/echo_freq.py — golden-grade
-    # and fast for clutter-heavy scenes; requires endpoint_grid=False)
+    # 'jnp' (scan + XLA fusion) | 'freq' (NUFFT convolution + exact gate
+    # edges, ops/echo_freq.py — golden-grade and fast for clutter-heavy
+    # scenes; requires endpoint_grid=False)
     backend: str = "jnp"
     freq_oversample: int = 2    # spreading-grid oversampling for 'freq'
     # raised-cosine flank width (native samples) carried by the NUFFT path;
     # the flanks themselves are synthesized exactly. 0 = round-1 approximate
     # mode (no exact-edge pass, ~-25 dB field floor)
     freq_edge_taper: float = 4.0
-    # 'auto' | 'dense' | 'dense_kernel' | 'scatter': how the NUFFT impulses
-    # reach the grid (dense = one-hot MXU spreading, the TPU scatter-wall
-    # fix; targets are delay-sorted below so its group windows stay narrow;
-    # dense_kernel keeps the one-hot in VMEM — ops/pallas/spread_kernel.py).
-    # 'dense_kernel_qr' (digit-factorized full-width dot) is QUARANTINED:
-    # a measured loser at the shipped W/n_sets, kept only for probe-script
-    # A/Bs (docs/PERF_GUIDE.md "Variant retirement policy")
+    # 'auto' | 'dense' | 'scatter': how the NUFFT impulses reach the grid
+    # (scatter = f32 scatter-add; dense = one-hot matmul spreading, targets
+    # delay-sorted below so its group windows stay narrow;
+    # 'auto' = ops/echo_freq.py::AUTO_SPREADER)
     freq_spreader: str = "auto"
     # dense-spreader group sizing overrides (None = module defaults): the
     # (grp, B/grp, win) one-hot is the dense path's HBM bill; tighter
@@ -86,27 +83,16 @@ class EchoOpts:
     freq_spread_win: Optional[int] = None
     freq_spread_grp: Optional[int] = None
     # independent exact-edge-pass window override (None = half the main
-    # window rule): the edge pass is ~40% of the production channel pass
-    # and its one-hot bill scales with this window
-    # (scripts/probe_echo_edge2_r5.py) — callers with a bounded scene
-    # delay span (equality-gated) can shrink it
+    # window rule): the edge pass's one-hot bill scales with this window —
+    # callers with a bounded scene delay span (equality-gated) can shrink it
     freq_spread_win_edge: Optional[int] = None
     # slow-time stride of the exact f64 geometry pass for backend='freq'
     # (quadratic anchor interpolation between; 0/1 = exact at every pulse)
     freq_geom_stride: int = 8
-    # 'f64': interpolate the delay field in emulated f64 and wrap the
-    # carrier per (pulse, target). 'split' (QUARANTINED — measured flat at
-    # full scale, the sim is spread/conv-bound; probe-script A/Bs only,
-    # docs/PERF_GUIDE.md "Variant retirement policy"): f64 only at the
-    # anchors, inter-anchor deltas in f32 (~1e-5 rad carrier class)
+    # 'f64': interpolate the delay field in f64 and wrap the carrier per
+    # (pulse, target). 'split': f64 only at the anchors, inter-anchor
+    # deltas in f32 (~1e-5 rad carrier class)
     freq_geom_interp: str = "f64"
-    # 'auto' | 'xla' | 'pallas' | 'pallas_interpret': the freq backend's FFT
-    # convolution. 'pallas' fuses forward DFT + filter + inverse DFT in one
-    # VMEM pass (ops/pallas/fft_kernel.py::fft_conv_pallas; TPU-only, falls
-    # back to 'xla' elsewhere or when the FFT length is unsupported);
-    # 'auto' picks pallas on TPU (measured ~8% faster at full ATI scale,
-    # 4.4e-5-of-rms error — inside every fidelity budget)
-    freq_conv: str = "auto"
 
     @property
     def half_width(self) -> float:
@@ -259,10 +245,13 @@ def _phase_history(t_slow, sat_pos, sat_vel, tgt_pos, tgt_rcs, tgt_vel,
         tgt_rcs_p = tgt_rcs_p[order]
         amp_b = amp_b[order]
 
-    if opts.backend in ("pallas", "pallas_interpret", "freq"):
-        # two-pass: chunk-scanned f64 geometry -> (P, B) f32 scalars, then one
-        # fused VMEM kernel for the (P, B, Ns) accumulation.
-        h_geo = opts.freq_geom_stride if opts.backend == "freq" else 0
+    if opts.backend not in BACKENDS:
+        raise ValueError(f"unknown echo backend {opts.backend!r}; options: "
+                         f"{', '.join(BACKENDS)}")
+    if opts.backend == "freq":
+        # two-pass: chunk-scanned f64 geometry -> (P, B) f32 scalars, then
+        # the NUFFT synthesis of the (P, Ns) field.
+        h_geo = opts.freq_geom_stride
         if opts.freq_geom_interp not in ("f64", "split"):
             raise ValueError(
                 f"unknown freq_geom_interp {opts.freq_geom_interp!r}")
@@ -270,14 +259,13 @@ def _phase_history(t_slow, sat_pos, sat_vel, tgt_pos, tgt_rcs, tgt_vel,
         # geometry through the same anchored pipeline and stacks the
         # scalar fields on the pulse axis, so ONE synthesize call (one
         # program, one scan tail) serves every channel; the caller
-        # slices the (C*P, Ns) result per channel (never materializing
-        # the 3-D (C, P, Ns) layout trap).
+        # slices the (C*P, Ns) result per channel.
         offs_c = ([rx_offset] if rx_offset.ndim == 0
                   else [rx_offset[c] for c in range(rx_offset.shape[0])])
         taus_c, cars_c, amps_c = [], [], []
         for off_c in offs_c:
             if h_geo > 1 and num_p > 3 * h_geo:
-                # anchored geometry: the emulated-f64 pass runs only every
+                # anchored geometry: the f64 pass runs only every
                 # h_geo-th pulse; the delay field interpolates quadratically in
                 # slow time (residual ~1e-19 s at reference orbital jerk — see
                 # utils/anchors.py), and the carrier derives from the
@@ -358,32 +346,23 @@ def _phase_history(t_slow, sat_pos, sat_vel, tgt_pos, tgt_rcs, tgt_vel,
                    else jnp.concatenate(cars_c, axis=0))
         amp_all = (amps_c[0] if len(amps_c) == 1
                    else jnp.concatenate(amps_c, axis=0))
-        if opts.backend == "freq":
-            if opts.endpoint_grid:
-                raise ValueError(
-                    "backend='freq' needs a uniform fast-time grid "
-                    "(endpoint_grid=False)")
-            from nis_sar_amtigmti_video_tpu.ops.echo_freq import synthesize
-            return synthesize(tau_all, car_all, amp_all, opts,
-                              oversample=opts.freq_oversample,
-                              edge_taper=opts.freq_edge_taper,
-                              spreader=opts.freq_spreader,
-                              spread_win=opts.freq_spread_win,
-                              spread_grp=opts.freq_spread_grp,
-                              conv=opts.freq_conv,
-                              spread_win_edge=opts.freq_spread_win_edge)
-        from nis_sar_amtigmti_video_tpu.ops.pallas.echo_kernel import (
-            echo_accumulate)
-        return echo_accumulate(
-            tau_all, car_all, amp_all, t_fast_f32,
-            k_pi=float(math.pi * opts.chirp_rate),
-            shift=float(opts.chirp_shift), half=float(opts.half_width),
-            interpret=(opts.backend == "pallas_interpret"))
+        if opts.endpoint_grid:
+            raise ValueError(
+                "backend='freq' needs a uniform fast-time grid "
+                "(endpoint_grid=False)")
+        from nis_sar_amtigmti_video_tpu.ops.echo_freq import synthesize
+        return synthesize(tau_all, car_all, amp_all, opts,
+                          oversample=opts.freq_oversample,
+                          edge_taper=opts.freq_edge_taper,
+                          spreader=opts.freq_spreader,
+                          spread_win=opts.freq_spread_win,
+                          spread_grp=opts.freq_spread_grp,
+                          spread_win_edge=opts.freq_spread_win_edge)
 
     if rx_offset.ndim:
         raise ValueError(
-            "batched (C,) rx_offset is only supported on the scalar-field "
-            "backends ('freq'/'pallas'); vmap the 'jnp' engine instead")
+            "batched (C,) rx_offset is only supported on the 'freq' "
+            "backend; vmap the 'jnp' engine instead")
 
     def pulse_chunk(carry, xs):
         ts, ps, vs = xs
@@ -435,16 +414,15 @@ def multi_channel_phase_history(trajectory, targets, opts: EchoOpts, *,
     """Simulate all receive channels.
 
     Returns a (num_channels, P, Ns) complex64 array for the direct
-    backends (the channel axis is a leading batch axis — shard it over the
+    backend (the channel axis is a leading batch axis — shard it over the
     mesh 'chan' axis for multichannel GMTI/HRWS collections), or a TUPLE
-    of per-channel (P, Ns) arrays for backend='freq' (big stacked channel
-    arrays hit a catastrophic padded layout on TPU; see the branch below).
+    of per-channel (P, Ns) arrays for backend='freq' (see the branch
+    below).
 
     ``channels_as_tuple`` pins the return form for consumers that need one
     contract across backends: True always returns the per-channel tuple;
     False always returns the stacked (C, P, Ns) array (for 'freq' the stack
-    happens post-synthesis — safe at small/medium shapes, but avoid at the
-    full 7,200 x 13,200 scale where the stacked layout costs ~97 GB);
+    happens post-synthesis and copies every channel once more);
     None (default) keeps the backend-dependent auto behavior above.
     """
     t = jnp.asarray(trajectory.times, jnp.float64)
@@ -464,12 +442,8 @@ def multi_channel_phase_history(trajectory, targets, opts: EchoOpts, *,
         # pulse axis inside _phase_history, so a single synthesize program
         # (one scan tail, one spread/conv pipeline, shared delay sort)
         # serves all channels. The result stays 2-D (C*P, Ns), sliced per
-        # channel here and returned as a TUPLE: at the reference
-        # 2 x 7,200 x 13,200 scale ANY (C, P, Ns) complex64 construction
-        # (vmapped, stacked, lax.complex of stacked planes) gets a 64x
-        # tile-padded {0,2,1} layout on TPU — 97 GB (the round-1 layout
-        # trap; docs/ARCHITECTURE.md TPU constraints). Consumers index
-        # channels, so the tuple is a drop-in.
+        # channel here and returned as a TUPLE: consumers index channels,
+        # and the full-scale pipeline never needs a stacked copy.
         offs = np.asarray(rx_offsets, np.float64)
         if len(offs) == 1:
             chans = (one(jnp.float64(offs[0])),)

@@ -65,16 +65,14 @@ from nis_sar_amtigmti_video_tpu.utils.cplx import expj
 
 _W = 8                      # spreading taps
 _BETA = 2.30 * _W           # ES-kernel beta (FINUFFT's rule of thumb)
-_LANE_C = 128               # fused-conv output row width (TPU lane count)
+SPREADERS = ("auto", "scatter", "dense")
+# what spreader='auto' resolves to
+AUTO_SPREADER = "scatter"
 
 
 def _next_fast_len(n: int) -> int:
-    """Next power of two >= n.
-
-    XLA:TPU only runs power-of-two FFT lengths on the fast path; a 5-smooth
-    length that CPU FFT libraries love (e.g. 150,000 at the reference
-    two-channel scale) lowers to a DENSE DFT matmul on TPU — a 90 GB
-    allocation. The <=2x extra padding is far cheaper."""
+    """Next power of two >= n (at most 2x padding over the linear
+    convolution's support)."""
     return 1 << (n - 1).bit_length()
 
 
@@ -135,18 +133,18 @@ def _edge_taper(u, width_s: float, t_edge_s: float):
 
 
 def _spread_dense(i0, val_sets, l_out: int, win: int, grp: int,
-                  lo: int = 0, impl: str = "xla"):
-    """Scatter-free spreading: values at integer cells via one-hot MXU
+                  lo: int = 0):
+    """Scatter-free spreading: values at integer cells via one-hot
     matmuls over groups of delay-ordered targets.
 
-    The TPU scatter wall (~24 ns/update) made the round-2 spreader slower
-    than the direct engine despite its ~500x work advantage. Here targets
+    The alternative to the scatter-add spreader: no atomics and no
+    scatters, at the price of one-hot matmul traffic. Targets
     arrive sorted by delay (the echo engine orders the scene once), so each
     group of B/grp consecutive targets spans a narrow cell band: build a
     (targets, win) one-hot of the group's window-relative cells, contract
-    the K tap values against it on the MXU, shift tap k by k lanes, and add
+    the K tap values against it as a matmul, shift tap k by k cells, and add
     the group windows into the field with a second (row-level) one-hot
-    matmul — no scatters anywhere.
+    matmul.
 
     i0: (pc, B) i32 cell of tap 0 (may be out of grid — such taps must
     carry zero weight, matching the scatter path's clip).
@@ -158,9 +156,6 @@ def _spread_dense(i0, val_sets, l_out: int, win: int, grp: int,
     pathologically spread scene) are dropped — callers choose win/grp so
     this cannot happen for sane scenes (tests compare against the scatter
     path on the reference scenes).
-    impl: 'xla' (HBM one-hot + dot_general) or 'pallas'/'pallas_interpret'
-    (ops/pallas/spread_kernel.py — the one-hot never leaves VMEM; requires
-    every value set at one K, which both callers satisfy).
     Returns (pc, l_out) f32 re/im fields.
     """
     pc, num_b = i0.shape
@@ -193,58 +188,37 @@ def _spread_dense(i0, val_sets, l_out: int, win: int, grp: int,
 
     def _pack_vals(vr, vi, k_taps):
         # re/im stacked on the tap axis: ONE contraction against the big
-        # one-hot serves both fields, halving the spread's dominant HBM
+        # one-hot serves both fields, halving the spread's dominant memory
         # bill (the one-hot reads)
         v2 = jnp.concatenate([vr, vi], axis=-1)               # (pc,B,2K)
         return jnp.swapaxes(
             jnp.pad(v2, ((0, 0), (0, b_pad - num_b), (0, 0))
                     ).reshape(pc, grp, bg, 2 * k_taps), 2, 3)  # (pc,g,2K,bg)
 
-    if impl == "xla":
-        oh = (jnp.where(ok, c_rel, -1)[..., None] == iota
-              ).astype(jnp.bfloat16)                          # (pc,g,bg,win)
-        wins = None
-    else:
-        # VMEM-resident one-hot: the kernel builds and consumes the
-        # selection matrix per (pulse, group) tile, writing only the group
-        # windows (ops/pallas/spread_kernel.py)
-        from nis_sar_amtigmti_video_tpu.ops.pallas.spread_kernel import (
-            spread_windows_pallas)
-        bgp = -(-bg // 128) * 128
-        c_ok = jnp.pad(jnp.where(ok, c_rel, -1).astype(jnp.int32),
-                       ((0, 0), (0, 0), (0, bgp - bg)), constant_values=-1)
-        vts = [jnp.pad(_pack_vals(vr, vi, vr.shape[-1]
-                                  ).astype(jnp.float32),
-                       ((0, 0), (0, 0), (0, 0), (0, bgp - bg)))
-               for vr, vi, _ in val_sets]
-        wins = spread_windows_pallas(c_ok, vts, win,
-                                     interpret=impl.endswith("interpret"),
-                                     qr="qr" in impl)
+    oh = (jnp.where(ok, c_rel, -1)[..., None] == iota
+          ).astype(jnp.bfloat16)                              # (pc,g,bg,win)
 
     fr = jnp.zeros((pc, l_pad), jnp.float32)
     fi = jnp.zeros_like(fr)
-    for si, (vr, vi, offset) in enumerate(val_sets):
+    for vr, vi, offset in val_sets:
         k_taps = vr.shape[-1]
-        if wins is not None:
-            out_r, out_i = wins[si]
-        else:
-            vt = _pack_vals(vr, vi, k_taps)
-            vh = vt.astype(jnp.bfloat16)
-            vl = (vt - vh.astype(jnp.float32)).astype(jnp.bfloat16)
+        vt = _pack_vals(vr, vi, k_taps)
+        vh = vt.astype(jnp.bfloat16)
+        vl = (vt - vh.astype(jnp.float32)).astype(jnp.bfloat16)
 
-            def dg(a, oh=oh):
-                return jax.lax.dot_general(
-                    a, oh, (((3,), (2,)), ((0, 1), (0, 1))),
-                    preferred_element_type=jnp.float32)       # (pc,g,2K,win)
+        def dg(a, oh=oh):
+            return jax.lax.dot_general(
+                a, oh, (((3,), (2,)), ((0, 1), (0, 1))),
+                preferred_element_type=jnp.float32)           # (pc,g,2K,win)
 
-            part = dg(vh) + dg(vl)   # one-hot exact in bf16; split v only
-            out_r = jnp.zeros((pc, grp, win), jnp.float32)
-            out_i = jnp.zeros((pc, grp, win), jnp.float32)
-            for k in range(k_taps):
-                out_r = out_r + jnp.roll(part[:, :, k], k, axis=-1)
-                out_i = out_i + jnp.roll(part[:, :, k_taps + k], k, axis=-1)
+        part = dg(vh) + dg(vl)       # one-hot exact in bf16; split v only
+        out_r = jnp.zeros((pc, grp, win), jnp.float32)
+        out_i = jnp.zeros((pc, grp, win), jnp.float32)
+        for k in range(k_taps):
+            out_r = out_r + jnp.roll(part[:, :, k], k, axis=-1)
+            out_i = out_i + jnp.roll(part[:, :, k_taps + k], k, axis=-1)
 
-        # sub-row part of the offset: pad one row and lane-roll the windows
+        # sub-row part of the offset: pad one row and roll the windows
         off_mod = offset % 128
         win_e = win + (128 if off_mod else 0)
         if off_mod:
@@ -254,8 +228,8 @@ def _spread_dense(i0, val_sets, l_out: int, win: int, grp: int,
                              off_mod, axis=-1)
 
         # row-level one-hot placement: field rows = sum over group-window
-        # rows selected at their dynamic row offsets (a batched MXU dot —
-        # the vmapped dynamic-update alternative lowers to a scatter)
+        # rows selected at their dynamic row offsets (a batched dot — the
+        # vmapped dynamic-update alternative lowers to a scatter)
         nwr = win_e // 128
         base_eff = base + (offset - off_mod)
         rowpos = (base_eff[:, :, None] // 128
@@ -263,7 +237,7 @@ def _spread_dense(i0, val_sets, l_out: int, win: int, grp: int,
                   ).reshape(pc, grp * nwr)
         rowhot = (rowpos[..., None] == row_io).astype(jnp.bfloat16)
 
-        # re/im stacked on the lane axis: one placement dot serves both
+        # re/im stacked on the minor axis: one placement dot serves both
         wv = jnp.concatenate([out_r.reshape(pc, grp * nwr, 128),
                               out_i.reshape(pc, grp * nwr, 128)], axis=-1)
         wh = wv.astype(jnp.bfloat16)
@@ -284,7 +258,7 @@ def _spread_dense(i0, val_sets, l_out: int, win: int, grp: int,
 def synthesize(tau_rel, carrier, amp, opts, oversample: int = 2,
                pulse_chunk: int | None = None, edge_taper: float = 4.0,
                spreader: str = "auto", spread_win: int | None = None,
-               spread_grp: int | None = None, conv: str = "auto",
+               spread_grp: int | None = None,
                spread_win_edge: int | None = None,
                spread_grp_edge: int | None = None):
     """(P, B) per-(pulse,target) scalars -> (P, Ns) complex64 raw data.
@@ -304,61 +278,45 @@ def synthesize(tau_rel, carrier, amp, opts, oversample: int = 2,
     scatter-added. Costs ~2 extra taps-per-target passes; 0 restores the
     round-1 approximate behavior.
 
-    spreader: 'scatter' (round-2 scatter-add), 'dense' (one-hot MXU
+    spreader: 'scatter' (f32 scatter-add), 'dense' (one-hot matmul
     spreading, :func:`_spread_dense` — requires the target axis sorted by
-    delay, which the echo engine's freq branch guarantees), 'dense_kernel'
-    (same semantics, one-hot built in VMEM by ops/pallas/spread_kernel.py;
-    needs a TPU — falls back to 'dense' elsewhere, with
-    'dense_kernel_interpret' as the test mode), or 'auto' (dense on TPU,
-    scatter elsewhere).
-    conv: 'xla' (jnp fft round trips) or 'pallas'/'pallas_interpret' (the
-    fused four-step conv kernel, fft_conv_pallas — TPU-gated, falls back
-    to 'xla' when the padded FFT length is outside the kernel's range).
+    delay, which the echo engine's freq branch guarantees), or 'auto'
+    (:data:`AUTO_SPREADER`).
     """
     num_p, num_b = tau_rel.shape
     ns = opts.num_samples
     os_ = oversample
     fs_os = opts.fs_hz * os_
+    if spreader not in SPREADERS:
+        raise ValueError(f"unknown spreader {spreader!r}; options: "
+                         f"{', '.join(SPREADERS)}")
     if spreader == "auto":
-        # dense_kernel == dense bit-for-bit since the hi/lo halves split
-        # outside the kernel, and ~1.9x faster at full ATI scale (1.11 vs
-        # 2.07 s/channel pass, scripts/probe_echo_spread_sweep.py)
-        spreader = ("dense_kernel" if jax.default_backend() == "tpu"
-                    else "scatter")
-    if (spreader in ("dense_kernel", "dense_kernel_qr")
-            and jax.default_backend() != "tpu"):
-        spreader = "dense"                 # Mosaic needs a TPU (csa.py guard)
-    if spreader not in ("scatter", "dense", "dense_kernel",
-                        "dense_kernel_qr", "dense_kernel_interpret",
-                        "dense_kernel_qr_interpret"):
-        raise ValueError(f"unknown spreader {spreader!r}")
-    use_dense = spreader != "scatter"
-    d_impl = {"dense": "xla", "dense_kernel": "pallas",
-              "dense_kernel_qr": "pallas_qr",
-              "dense_kernel_interpret": "pallas_interpret",
-              "dense_kernel_qr_interpret": "pallas_qr_interpret",
-              "scatter": "xla"}[spreader]
+        spreader = AUTO_SPREADER
+    use_dense = spreader == "dense"
     # group sizing: the (pc, grp, B/grp, win) one-hot IS the dense path's
-    # HBM bill (~grp*(B/grp)*win bf16 per pulse); more/smaller groups cut it
-    # linearly until a group's delay span approaches win - K (sorted scenes:
-    # span ~ total_cells/grp). Defaults hold the round-3 safety margin;
-    # spread_win/spread_grp are the measured-sweep overrides
-    # (scripts/probe_echo_spread_sweep.py).
+    # memory bill (~grp*(B/grp)*win bf16 per pulse); more/smaller groups cut
+    # it linearly until a group's delay span approaches win - K (sorted
+    # scenes: span ~ total_cells/grp). Defaults hold a safety margin;
+    # spread_win/spread_grp override them.
     d_win, d_grp = spread_win or 4096, spread_grp or 16
     # the edge pass works at the NATIVE rate (spans half the oversampled
     # grid's), so its window scales as spread_win/2 — capping it would
     # silently drop gate-flank corrections for widely-spread scenes.
-    # ``spread_win_edge`` overrides it independently (the edge pass is
-    # ~40% of the production channel pass — probe_echo_edge_r5.py — and
-    # its one-hot bill scales with this window).
+    # ``spread_win_edge`` overrides it independently (the edge pass's
+    # one-hot bill scales with this window).
     d_win_e, d_grp_e = (spread_win_edge
                         or (spread_win // 2 if spread_win else 2048),
                         spread_grp_edge or spread_grp or 16)
-    if d_win % 128 or d_win_e % 128 or d_win_e < 256:
+    if d_win % 128:
         raise ValueError(
-            f"spread_win must be a 256-multiple (got {spread_win}): the "
-            "spread windows place as whole 128-lane rows at both the "
-            "oversampled and native rates")
+            f"spread_win must be a multiple of 128 (got {d_win}): the "
+            "spread windows place as whole 128-cell rows")
+    if d_win_e % 128 or d_win_e < 256:
+        name = ("spread_win_edge" if spread_win_edge
+                else f"spread_win_edge (spread_win // 2 of {spread_win})")
+        raise ValueError(
+            f"{name} must be a multiple of 128 and >= 256 (got {d_win_e}): "
+            "the edge-pass windows place as whole 128-cell rows")
 
     g, x0 = chirp_kernel(opts, os_, edge_taper)
     lead = int(round(opts.pulse_width_s * fs_os)) + os_ + _W     # L0
@@ -373,24 +331,6 @@ def synthesize(tau_rel, carrier, amp, opts, oversample: int = 2,
     # combined spectral filter: chirp response deconvolved by the spreader
     filt = np.fft.fft(g.astype(np.complex128), n=l_fft) / _kernel_ft(l_fft)
     filt_j = jnp.asarray(filt.astype(np.complex64))
-
-    if conv == "auto":
-        # the fused conv wins ~8% on the full ATI pass (1.02 vs 1.10 s) at
-        # 4.4e-5-of-rms error — 20x inside the golden fidelity budgets
-        # (probe: /tmp-level full-scale A/B, docs/ROUND3_NOTES.md)
-        conv = "pallas" if jax.default_backend() == "tpu" else "xla"
-    if conv == "pallas" and jax.default_backend() != "tpu":
-        conv = "xla"                       # Mosaic needs a TPU (csa.py guard)
-    if conv not in ("xla", "pallas", "pallas_interpret"):
-        raise ValueError(f"unknown conv {conv!r}")
-    if conv != "xla":
-        from nis_sar_amtigmti_video_tpu.ops.pallas import fft_kernel as _fftk
-        if not _fftk.supported(l_fft):
-            conv = "xla"                   # padded length outside the kernel
-    # inverse-band slicing for the fused conv: only the window's rows
-    p0c = lead // _LANE_C
-    p1c = -(-(lead + ns * os_) // _LANE_C)
-    off_c = lead - p0c * _LANE_C
 
     if pulse_chunk is None:
         per_pulse = max(num_b * _W, l_fft)
@@ -417,8 +357,8 @@ def synthesize(tau_rel, carrier, amp, opts, oversample: int = 2,
         Per-tap math runs in f32 against per-target f64 anchors: the flank
         phase is quadratic in the tap offset k, ph = c0 + c1 k + c2 k^2,
         with c0/c1 computed (and wrapped) per (pulse, target) in f64 and
-        c2 = pi K / fs^2 a small static constant — the per-tap emulated-f64
-        arithmetic this replaces was the edge pass's dominant TPU cost."""
+        c2 = pi K / fs^2 a small static constant, so no per-tap f64
+        arithmetic is needed."""
         tau64 = tau.astype(jnp.float64)
         corr_r = jnp.zeros((pc, ns) if use_dense else (pc * ns,), jnp.float32)
         corr_i = jnp.zeros_like(corr_r)
@@ -478,7 +418,7 @@ def synthesize(tau_rel, carrier, amp, opts, oversample: int = 2,
                     er, ei = _spread_dense(
                         jnp.clip(cell0, -256.0, ns + 256.0
                                  ).astype(jnp.int32),
-                        [(vr, vi, 0)], ns, d_win_e, d_grp_e, impl=d_impl)
+                        [(vr, vi, 0)], ns, d_win_e, d_grp_e)
                     corr_r = corr_r + er
                     corr_i = corr_i + ei
                 continue
@@ -495,7 +435,7 @@ def synthesize(tau_rel, carrier, amp, opts, oversample: int = 2,
         if use_dense:
             if share:
                 er, ei = _spread_dense(i0_lead, sets, ns, d_win_e, d_grp_e,
-                                       lo=delta + 256, impl=d_impl)
+                                       lo=delta + 256)
                 corr_r = corr_r + er
                 corr_i = corr_i + ei
             return jax.lax.complex(corr_r, corr_i)
@@ -522,32 +462,24 @@ def synthesize(tau_rel, carrier, amp, opts, oversample: int = 2,
             # the margins (dropped, == the scatter path's ok-mask) without
             # dragging their group's window away from live neighbors
             i0_d = jnp.clip(i0, -256, l_imp + 256)
-            fr, fi = _spread_dense(i0_d, [(vr, vi, 0)], l_imp, d_win, d_grp,
-                                   impl=d_impl)
+            fr, fi = _spread_dense(i0_d, [(vr, vi, 0)], l_imp, d_win, d_grp)
         else:
             ok = (pos >= 0) & (pos < l_imp)
             pos = jnp.clip(pos, 0, l_imp - 1)
             wv = jnp.where(ok, w, 0.0)
             flat = (jnp.broadcast_to(rows, pos.shape).reshape(-1) * l_imp
                     + pos.reshape(-1))
-            # separate f32 re/im scatters: complex64 scatter-adds at the
-            # reference scale (10M+ updates) fault the TPU runtime
+            # separate f32 re/im scatter-adds
             fr = jnp.zeros((pc * l_imp,), jnp.float32).at[flat].add(
                 (wv * jnp.real(a_cplx)[:, :, None]).reshape(-1)
                 ).reshape(pc, l_imp)
             fi = jnp.zeros((pc * l_imp,), jnp.float32).at[flat].add(
                 (wv * jnp.imag(a_cplx)[:, :, None]).reshape(-1)
                 ).reshape(pc, l_imp)
-        if conv != "xla":
-            cr, ci2 = _fftk.fft_conv_pallas(
-                fr, fi, filt, l_fft, out_rows=(p0c, p1c),
-                interpret=conv == "pallas_interpret")
-            out_c = jax.lax.complex(cr, ci2)[:, off_c:off_c + ns * os_:os_]
-        else:
-            spec = jnp.fft.fft(jax.lax.complex(fr, fi),
-                               n=l_fft, axis=-1) * filt_j
-            conv_f = jnp.fft.ifft(spec, axis=-1)
-            out_c = conv_f[:, lead:lead + ns * os_:os_]
+        spec = jnp.fft.fft(jax.lax.complex(fr, fi),
+                           n=l_fft, axis=-1) * filt_j
+        conv_f = jnp.fft.ifft(spec, axis=-1)
+        out_c = conv_f[:, lead:lead + ns * os_:os_]
         if n_edge:
             out_c = out_c + _edge_exact(tau, a_cplx)
         return carry, out_c

@@ -1,6 +1,6 @@
 """Gather-based linear interpolation primitives.
 
-TPU has no ``grid_sample`` / ``interp1d``; everything is expressed as
+JAX has no ``grid_sample`` / ``interp1d``; everything is expressed as
 vectorized index arithmetic + gathers, replacing the reference's per-bin
 ``scipy.interp1d`` loop (sar_satellite_sim.py:417-427) and
 ``torch.nn.functional.grid_sample`` (sar_batch_sim.py:229).

@@ -52,7 +52,7 @@ class RdaParams:
     range_window: str = "hamming"
     azimuth_window: str = "hamming"
     rcmc_mode: str = "exact"  # 'exact' (reference interp1d semantics) |
-                              # 'fast' (one gather) | 'phase' (TPU-fast
+                              # 'fast' (one gather) | 'phase' (gather-free
                               # Fourier shift; see phase_rcmc_inrow_cells)
 
 
@@ -105,8 +105,8 @@ def range_compress(phist, p: RdaParams):
     n_rg = phist.shape[-1]
     n_mf = mf.shape[0]
     # any nfft >= n_rg + n_mf - 1 gives the exact linear convolution; round
-    # up to a power of two — odd composite lengths (e.g. 16095) fall off
-    # XLA's fast FFT path and cost ~10x on TPU
+    # up to a power of two (odd composite lengths such as 16095 would take
+    # a slower non-power-of-two FFT)
     nfft = 1 << (n_rg + n_mf - 2).bit_length()
     spec = jnp.fft.fft(phist, n=nfft, axis=-1) * jnp.fft.fft(mf, n=nfft)
     full = jnp.fft.ifft(spec, axis=-1)
@@ -153,7 +153,7 @@ def rcmc(rd, delta_r, range_axis, mode: str = "exact"):
     'fast': target-indexed uniform gather at r + delta_R(r) — standard RCMC,
     one gather, no searchsorted; differs from 'exact' by O(delta_R') terms.
     'phase': per-Doppler-row constant shift applied as a Fourier phase ramp
-    (band-limited interpolation; no gathers — the TPU-fast mode). Valid when
+    (band-limited interpolation; no gathers). Valid when
     phase_rcmc_inrow_cells(p) << 1; edges wrap circularly over the outermost
     ~delta_R cells instead of zero-filling.
     'czt': per-Doppler-row *affine* resample via chirp-Z evaluation

@@ -17,7 +17,6 @@ Distributed CSA layout walk (3 corner turns):
 
 from __future__ import annotations
 
-from dataclasses import replace as _dc_replace
 from functools import partial
 
 import jax
@@ -54,7 +53,7 @@ def csa_local(phist_local, phi1_cols, phi2_rows, phi3_rows, axis_name: str,
     phi1_cols:   (P, Ns/n)      — Phi1 sliced along range
     phi2_rows, phi3_rows: (P/n, Ns) — Phi2/Phi3 sliced along azimuth
     fft_impl: 'xla' | 'mxu' | 'hybrid' (ops/fft.py) — the azimuth passes
-    are exactly the axis=-2 case the MXU einsum accelerates.
+    are exactly the axis=-2 case the matmul DFT handles.
     Returns (..., P, Ns/n) — range-sharded SLC.
     """
     from nis_sar_amtigmti_video_tpu.ops.fft import get_impl
@@ -98,7 +97,7 @@ def bp_sharded(rc, sat_pos, sat_vel, t_slow, vel_focus, t_start, p,
                mesh, axis: str = "seq"):
     """Pulse-sharded backprojection: each device backprojects its slow-time
     shard onto the full pixel grid, then the partial images psum over
-    ``axis`` — the TPU analog of a ring-reduce over aperture segments
+    ``axis`` — a ring-reduce over aperture segments
     (SURVEY §5 "BP accumulation over pulse shards = psum"; the reference
     runs the pulse loop serially, sar_batch_sim.py:207-235).
 
@@ -134,7 +133,7 @@ def bp_sharded(rc, sat_pos, sat_vel, t_slow, vel_focus, t_start, p,
 def bp_fast_sharded(raw, sat_pos, sat_vel, t_slow, vel_focus, t_start,
                     p, plan, mesh, axis: str = "seq", presum: int = 1,
                     accumulate: str = "xla", fit_stride: int = 0,
-                    recentre: str = "xla", raw_spectra=None):
+                    raw_spectra=None):
     """Pulse-sharded *fast* backprojection: each device runs the fused
     compress+recentre+presum and iso-range accumulation on its slow-time
     shard, partial internal images psum over ``axis``, and the (cheap)
@@ -149,51 +148,24 @@ def bp_fast_sharded(raw, sat_pos, sat_vel, t_slow, vel_focus, t_start,
     order).
 
     ``accumulate`` selects the per-shard accumulation exactly as in
-    :func:`ops.bp_fast.backproject_fast`: 'xla' (scan), 'pallas' /
-    'pallas_interpret' (fused pixel-tile kernel — the path that makes
-    single-chip BP 111 ms; needs a w_win=64 plan), or 'factor'/'factor2'
-    (the sub-aperture factorization; needs a factorize=True plan — the
-    quarantined 'factor_kernel' variant is ops-layer-only, see
-    docs/PERF_GUIDE.md "Variant retirement policy"). Sub-aperture
-    anchors are then per-shard, which changes only the band-limited merge's
-    ~-100 dB interpolation error, not the exact phase totals.
-
-    ``recentre='pallas'`` runs each shard's compress+recentre+presum
-    through the fused four-step FFT kernel with its band-limited inverse
-    (the path that serves single-chip BP; needs a kernel-supported
-    plan.nfft). ``raw_spectra`` (P, nfft/128, 256, from
-    ops/bp_fast.forward_spectra) feeds cached forward spectra instead of
-    raw pulses — the streaming-VideoSAR path sharded over pulses; ``raw``
-    is then ignored.
+    :func:`ops.bp_fast.backproject_fast`: 'xla' (scan) or 'factor' /
+    'factor2' (the sub-aperture factorization; needs a factorize=True
+    plan). Sub-aperture anchors are then per-shard, which changes only the
+    band-limited merge's ~-100 dB interpolation error, not the exact phase
+    totals. ``raw_spectra`` (P, nfft, from ops/bp_fast.forward_spectra)
+    feeds cached forward spectra instead of raw pulses — the
+    streaming-VideoSAR path sharded over pulses; ``raw`` is then ignored.
     """
-    import jax
     from jax.sharding import PartitionSpec as P_
 
     from nis_sar_amtigmti_video_tpu.ops import bp_fast as bf
 
-    if accumulate == "factor2_pallas":  # recentre= is a separate knob here
-        accumulate = "factor2"
-    if jax.default_backend() != "tpu":
-        if accumulate == "pallas":      # Mosaic needs a TPU; mirrors
-            accumulate = "xla"          # backproject_fast
-        if recentre == "pallas":        # interpret stays available
-            recentre = "pallas_interpret" if raw_spectra is not None \
-                else "xla"
-    if recentre not in ("xla", "pallas", "pallas_interpret"):
-        raise ValueError(f"unknown recentre {recentre!r}")
-    use_krec = (recentre != "xla") or raw_spectra is not None
-    if use_krec:
-        from nis_sar_amtigmti_video_tpu.ops.pallas import fft_kernel
-        if not fft_kernel.supported(plan.nfft):
-            if raw_spectra is not None:
-                raise ValueError(
-                    f"raw_spectra needs a kernel-supported plan.nfft "
-                    f"(got {plan.nfft})")
-            use_krec = False
-            recentre = "xla"
-    if raw_spectra is not None and raw_spectra.shape[1] * 128 != plan.nfft:
+    if accumulate not in bf.ACCUMULATES:
+        raise ValueError(f"unknown BP accumulate {accumulate!r}; options: "
+                         f"{', '.join(bf.ACCUMULATES)}")
+    if raw_spectra is not None and raw_spectra.shape[1] != plan.nfft:
         raise ValueError(
-            f"raw_spectra rows ({raw_spectra.shape[1]}) do not match "
+            f"raw_spectra length ({raw_spectra.shape[1]}) does not match "
             f"plan.nfft={plan.nfft}")
     d = max(1, presum)
     n_sh = mesh.shape[axis]
@@ -213,65 +185,31 @@ def bp_fast_sharded(raw, sat_pos, sat_vel, t_slow, vel_focus, t_start,
     ci = jnp.arange(num_p // d) * d + d // 2
     pos2, vel2, t2 = pos[ci], vel[ci], ts[ci]
     rdir, cdir, dy_m = bf._frame_geometry(pos2[pos2.shape[0] // 2], p, plan)
-    u0, pa, pb, pc, b_t, c_t = bf._fit_coeffs(pos2, vel2, t2, vf, p, plan,
-                                              t_mean, rdir, cdir, dy_m,
-                                              fit_stride=fit_stride)
+    coeffs = bf._fit_coeffs(pos2, vel2, t2, vf, p, plan, t_mean, rdir, cdir,
+                            dy_m, fit_stride=fit_stride)
     ref_conj = bf.matched_filter_spectrum(p, plan.nfft)
 
-    # band-limited kernel recentre: rc2 is then band-relative, so only the
-    # accumulate's slicing plan shifts (mirrors backproject_fast)
-    plan_acc = plan
-    p0 = p1 = 0
-    if use_krec:
-        band_end = (plan.band_start + plan.stride * (plan.ny_i - 1)
-                    + plan.w_win)
-        p0 = plan.band_start // 128
-        p1 = -(-band_end // 128)
-        plan_acc = _dc_replace(plan, band_start=plan.band_start - p0 * 128)
-    krec_interp = recentre == "pallas_interpret"
-
-    def body(raw_l, pos_l, vel_l, ts_l, u0_l, pa_l, pb_l, pc_l, bt_l, ct_l):
+    def body(raw_l, pos_l, vel_l, ts_l, *coeffs_l):
         if raw_spectra is not None:
-            rc2, _, _, _ = fft_kernel.recentre_from_spectra_pallas(
+            rc2, _, _, _ = bf.recentre_from_spectra(
                 raw_l, pos_l, vel_l, ts_l, vf, p, d, plan.t_ref,
-                interpret=krec_interp, t_mean=t_mean, out_rows=(p0, p1))
-        elif use_krec:
-            rc2, _, _, _ = fft_kernel.recenter_presum_pallas(
-                raw_l, pos_l, vel_l, ts_l, vf, p, d, plan.t_ref,
-                interpret=krec_interp, t_mean=t_mean, out_rows=(p0, p1))
+                t_mean=t_mean)
         else:
             rc2, _, _, _ = bf.recenter_presum(raw_l, pos_l, vel_l, ts_l, vf,
                                               p, d, plan.t_ref,
                                               ref_conj=ref_conj,
                                               t_mean=t_mean)
-        if accumulate in ("pallas", "pallas_interpret"):
-            from nis_sar_amtigmti_video_tpu.ops.pallas import bp_kernel
-            img = bp_kernel.accumulate_pallas(
-                rc2, u0_l, pa_l, pb_l, pc_l, bt_l, ct_l, plan_acc,
-                interpret=(accumulate == "pallas_interpret"))
-        elif accumulate == "factor2" and plan.sub_raw1 > 0:
-            img = bf._accumulate_factor2(rc2, u0_l, pa_l, pb_l, pc_l, bt_l,
-                                         ct_l, plan_acc,
-                                         max(1, plan.sub_raw1 // d), plan.grp)
-        elif accumulate.startswith("factor") and plan.sub_raw > 0:
-            img = bf._accumulate_factor(rc2, u0_l, pa_l, pb_l, pc_l, bt_l,
-                                        ct_l, plan_acc,
-                                        max(1, plan.sub_raw // d))
-        else:
-            img = bf._accumulate(rc2, u0_l, pa_l, pb_l, pc_l, bt_l, ct_l,
-                                 plan_acc)
+        img = bf.accumulate_image(rc2, coeffs_l, plan, accumulate, d)
         return jax.lax.psum(img, axis)[None]
 
     lead = raw_spectra if raw_spectra is not None else raw
-    lead_spec = (P_(axis, None, None) if raw_spectra is not None
-                 else P_(axis, None))
     fn = jax.shard_map(
         body, mesh=mesh,
-        in_specs=(lead_spec, P_(axis, None), P_(axis, None), P_(axis),
+        in_specs=(P_(axis, None), P_(axis, None), P_(axis, None), P_(axis),
                   P_(axis, None), P_(axis, None), P_(axis, None),
                   P_(axis, None), P_(axis), P_(axis)),
         out_specs=P_(None, None, None),
         check_vma=False)
-    img_i = fn(lead, pos, vel, ts, u0, pa, pb, pc, b_t, c_t)[0]
-    return bf._finalize(img_i, (pa, pb, pc), pos2, vel2, t2, vf, t_mean,
+    img_i = fn(lead, pos, vel, ts, *coeffs)[0]
+    return bf._finalize(img_i, coeffs[1:4], pos2, vel2, t2, vf, t_mean,
                         p, plan, rdir, cdir, dy_m)

@@ -2,7 +2,7 @@
 
 The reference's VideoSAR campaign runs sim -> focus -> save strictly serially
 per frame (sar_batch_sim.py:312-328): the GPU idles during every .npy write
-and the host idles during every focus. On TPU the same overlap falls out of
+and the host idles during every focus. On the device the same overlap falls out of
 JAX's async dispatch — enqueueing batch k+1 returns immediately, so the only
 thing that serialises stages is fetching batch k's result before dispatching
 k+1. :func:`pipelined` removes exactly that serialisation: it keeps ``depth``

@@ -6,7 +6,7 @@ Re-design of ``sar_scene_data.py``: the per-landcover material dictionary
 with bilinear lookup (:223-241).
 
 Network access (Overpass/Open-Elevation, :185-339) is *gated*: this
-environment is zero-egress, and production TPU pods often are too, so
+environment is zero-egress, and production compute nodes often are too, so
 ``SceneFetcher`` accepts pre-fetched JSON/elevation payloads (the documented
 formats) and only touches HTTP when explicitly asked with ``online=True``.
 """

@@ -1,8 +1,8 @@
 """Slow-time anchor interpolation layout (shared by fast-BP fits, echo
 geometry, and output remodulation).
 
-The emulated-f64 geometry passes are the dominant host-of-trig-free cost on
-TPU; every consumer's field (delay, phase, sample index) is C^3-smooth in
+The f64 geometry passes are the dominant trig-free cost of these paths;
+every consumer's field (delay, phase, sample index) is C^3-smooth in
 slow time with tiny third derivatives (orbital motion), so exact f64
 evaluation at anchor rows every ``h`` pulses plus quadratic Lagrange
 interpolation on the uniform {0, h, 2h} nodes reproduces the field to

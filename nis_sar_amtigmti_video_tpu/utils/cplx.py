@@ -1,11 +1,8 @@
 """Complex host<->device transfer helpers.
 
-Some TPU runtimes cannot transfer complex arrays across the host boundary
-(UNIMPLEMENTED on copy), even though complex64 *compute* (FFTs, elementwise)
-works fine on device. All public APIs in this package therefore move real/imag
-float planes across the boundary and (re)assemble complex on the proper side.
-
-Inside jit, use native complex64 freely.
+``to_host`` / ``to_device`` are the package's one boundary for moving
+arrays between NumPy and the device; each is a single direct transfer,
+complex dtypes included.
 """
 
 from __future__ import annotations
@@ -15,47 +12,20 @@ import jax.numpy as jnp
 import numpy as np
 
 
-@jax.jit
-def _split(x):
-    return jnp.real(x), jnp.imag(x)
-
-
-@jax.jit
-def _join(re, im):
-    return jax.lax.complex(re, im)
-
-
 def to_host(x) -> np.ndarray:
     """Fetch a (possibly complex) device array to a host numpy array."""
-    if not jnp.iscomplexobj(x):
-        return np.asarray(x)
-    re, im = _split(x)
-    re = np.asarray(re)
-    im = np.asarray(im)
-    return re + 1j * im
+    return np.asarray(x)
 
 
 def to_device(x: np.ndarray, dtype=jnp.complex64, device=None):
-    """Put a host array on device; complex goes over as two real planes."""
-    if not np.iscomplexobj(x):
-        return jax.device_put(np.asarray(x), device)
-    rdt = jnp.float32 if dtype == jnp.complex64 else jnp.float64
-    re = jax.device_put(np.ascontiguousarray(x.real).astype(rdt), device)
-    im = jax.device_put(np.ascontiguousarray(x.imag).astype(rdt), device)
-    return _join(re, im)
-
-
-def pack(x):
-    """complex (...,) -> float (..., 2) — a transfer/Pallas-friendly layout."""
-    return jnp.stack([jnp.real(x), jnp.imag(x)], axis=-1)
-
-
-def unpack(x):
-    """float (..., 2) -> complex (...,)."""
-    return jax.lax.complex(x[..., 0], x[..., 1])
+    """Put a host array on device; complex arrays are cast to ``dtype``."""
+    x = np.asarray(x)
+    if np.iscomplexobj(x):
+        x = x.astype(dtype)
+    return jax.device_put(x, device)
 
 
 def expj(phase):
     """exp(1j*phase) for real ``phase`` without materializing a complex phase
-    grid first — cos/sin fuse into the consumer on the VPU."""
+    grid first — cos/sin fuse into the consumer."""
     return jax.lax.complex(jnp.cos(phase), jnp.sin(phase))

@@ -3,9 +3,8 @@
 The reference's only observability is carriage-return progress prints
 (sar_satellite_sim.py:265) and tqdm (sar_batch_sim.py:281). Here:
 
-* ``stage_timer`` — wall-clock per pipeline stage with true device sync
-  (on some TPU runtimes ``block_until_ready`` is asynchronous; a scalar host
-  fetch is the only reliable fence, which ``sync()`` uses).
+* ``stage_timer`` — wall-clock per pipeline stage, fenced by ``sync()``
+  (``jax.block_until_ready`` on every leaf of the result).
 * ``trace`` — context manager around ``jax.profiler`` emitting a Perfetto
   trace directory.
 * ``named_scope`` — re-export of jax.named_scope for annotating CSA phases
@@ -23,23 +22,14 @@ from collections import defaultdict
 from typing import Dict
 
 import jax
-import jax.numpy as jnp
 import numpy as np
 
 named_scope = jax.named_scope
 
 
 def sync(x) -> None:
-    """Reliable device fence: reduce to a scalar and fetch it."""
-    leaves = jax.tree_util.tree_leaves(x)
-    if not leaves:
-        return
-    v = leaves[0]
-    if hasattr(v, "dtype") and jnp.iscomplexobj(v):
-        s = jnp.sum(jnp.abs(v.ravel()[:1]))
-    else:
-        s = jnp.sum(jnp.asarray(v).ravel()[:1].astype(jnp.float32))
-    float(np.asarray(s))
+    """Device fence: wait until every array in the pytree ``x`` is ready."""
+    jax.block_until_ready(x)
 
 
 class StageTimer:

@@ -80,8 +80,7 @@ def _jsonable(obj):
         return obj.tolist() if obj.size <= 64 else f"<array {obj.shape}>"
     if hasattr(obj, "dtype") and hasattr(obj, "shape"):
         # jax Array (possibly still on device): logging a metric straight off
-        # a computation is the common case — fetch it (complex-safe: some TPU
-        # runtimes cannot transfer complex directly)
+        # a computation is the common case — fetch it
         if obj.dtype.kind == "c":
             from nis_sar_amtigmti_video_tpu.utils.cplx import to_host
             a = to_host(obj)

@@ -1,6 +1,6 @@
 """NumPy oracle: slow, float64, host-side implementations of the reference
 pipelines' behaviors (see SURVEY.md §2.3-2.5). Written from scratch against
-the reference's *math* — these are the golden fixtures the TPU framework is
+the reference's *math* — these are the golden fixtures the JAX framework is
 tested against, and the CPU baseline the benchmarks are measured against."""
 
 from oracle.pipeline import (

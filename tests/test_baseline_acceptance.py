@@ -3,7 +3,7 @@
 "Outputs must match the reference NumPy pipeline to <1e-3 rad
 interferometric (ATI) phase and <0.1 dB image intensity on identical
 scenes." — this test runs the complete two-channel collect (bistatic echo x2
-channels) through both the framework (f32 TPU path) and the oracle (f64
+channels) through both the framework (f32 device path) and the oracle (f64
 NumPy behaviors) and asserts exactly those tolerances.
 """
 

@@ -78,6 +78,22 @@ def _check(fast, want, peak_db=0.1, peak_phase=0.01, field=0.01):
     assert np.abs(a_f - a_w).max() / a_w.max() < field
 
 
+def _stream_case(n_p, ns, seed):
+    """Random pulses on a short VideoSAR trajectory for the recentre
+    comparisons: (rc, pos, vel, ts, vf, p, t_ref)."""
+    rng = np.random.default_rng(seed)
+    g = cfg.videosar().geometry
+    traj = orbit.make_trajectory(g, orbit.slow_time_grid(n_p / 5000.0, n_p))
+    p = bp_ops.BpParams(fc_hz=9.65e9, chirp_rate=150e6 / 2e-6, fs_hz=180e6,
+                        pulse_width_s=2e-6, num_samples=ns, nx=64, ny=64,
+                        scene_size_m=400.0)
+    t_ref = float(2.0 * np.linalg.norm(traj.positions, axis=1).mean() / C)
+    rc = jnp.asarray(rng.standard_normal((n_p, ns))
+                     + 1j * rng.standard_normal((n_p, ns)), jnp.complex64)
+    return (rc, jnp.asarray(traj.positions), jnp.asarray(traj.velocities),
+            jnp.asarray(traj.times), jnp.zeros(3, jnp.float64), p, t_ref)
+
+
 class TestFastBp:
     def test_static_scene_matches_exact(self):
         raw, traj, p, t0 = _scene()
@@ -247,40 +263,11 @@ class TestFastBp:
         err = np.abs(got - want).max() / np.abs(want).max()
         assert err < 2e-3, err
 
-    def test_pallas_accumulate_matches_xla(self):
-        """Interpret-mode pixel-tile kernel vs _accumulate on the same
-        synthetic operands and w_win=64 plan."""
-        from nis_sar_amtigmti_video_tpu.ops.pallas import bp_kernel
-
-        plan = bp_fast.FastBpPlan(ny_i=128, nx_i=128, w_win=64, stride=1,
-                                  band_start=7, nfft=512, dx_m=1.0,
-                                  t_ref=1e-3, n_org=100.0)
-        rng = np.random.default_rng(3)
-        n_p = 5
-        rc2 = jnp.asarray(rng.standard_normal((n_p, 512))
-                          + 1j * rng.standard_normal((n_p, 512)),
-                          jnp.complex64)
-        u0 = jnp.asarray(30.0 + 2.0 * rng.standard_normal((n_p, 128)),
-                         jnp.float32)
-        pa = jnp.asarray(rng.uniform(-3, 3, (n_p, 128)), jnp.float32)
-        pb = jnp.asarray(0.01 * rng.standard_normal((n_p, 128)), jnp.float32)
-        pc = jnp.asarray(1e-4 * rng.standard_normal((n_p, 128)), jnp.float32)
-        b_t = jnp.asarray(0.05 * rng.standard_normal(n_p), jnp.float32)
-        c_t = jnp.asarray(1e-4 * rng.standard_normal(n_p), jnp.float32)
-        want = np.asarray(bp_fast._accumulate(rc2, u0, pa, pb, pc, b_t, c_t,
-                                              plan))
-        got = np.asarray(bp_kernel.accumulate_pallas(
-            rc2, u0, pa, pb, pc, b_t, c_t, plan, interpret=True))
-        err = np.abs(got - want).max() / np.abs(want).max()
-        assert err < 2e-4, err
-
     def test_anchored_fit_matches_exact_fit(self):
         """The anchored fit + f32 derived-coefficient interpolation (the
         bench/model path) must match the exact per-pulse fit within the
         interpolation budget, and still pass the oracle gate — at BOTH
-        the historic stride 8 and the round-5 adopted production stride
-        16 (probe_bp_r5.py: 38.0 -> 36.8 ms/frame at 1.4e-5 image
-        delta)."""
+        stride 8 and the production stride 16."""
         raw, traj, p, t0 = _scene()
         vf = np.zeros(3)
         plan = bp_fast.make_plan(p, traj.positions, traj.times, t0,
@@ -298,178 +285,52 @@ class TestFastBp:
             assert err < 1e-3, (stride, err)
             _check(got, _oracle_upsampled(raw, traj, p, t0, vf))
 
-    def test_factor_kernel_matches_xla(self):
-        """Interpret-mode factorized coarse-tile kernel vs
-        _accumulate_factor on the same synthetic operands and plan."""
-        from nis_sar_amtigmti_video_tpu.ops.pallas import bp_factor_kernel
-
-        plan = bp_fast.FastBpPlan(ny_i=128, nx_i=512, w_win=32, stride=1,
-                                  band_start=7, nfft=512, dx_m=1.0,
-                                  t_ref=1e-3, n_org=100.0,
-                                  sub_raw=4, nx_c=128)
-        assert bp_factor_kernel.supported(plan)
-        rng = np.random.default_rng(5)
-        n_p, sub_p = 11, 4           # ragged final sub-aperture on purpose
-        rc2 = jnp.asarray(rng.standard_normal((n_p, 512))
-                          + 1j * rng.standard_normal((n_p, 512)),
-                          jnp.complex64)
-        u0 = jnp.asarray(15.0 + 2.0 * rng.standard_normal((n_p, 128)),
-                         jnp.float32)
-        pa = jnp.asarray(rng.uniform(-3, 3, (n_p, 128)), jnp.float32)
-        pb = jnp.asarray(0.003 * rng.standard_normal((n_p, 128)), jnp.float32)
-        pc = jnp.asarray(3e-6 * rng.standard_normal((n_p, 128)), jnp.float32)
-        b_t = jnp.asarray(0.01 * rng.standard_normal(n_p), jnp.float32)
-        c_t = jnp.asarray(1e-5 * rng.standard_normal(n_p), jnp.float32)
-        want = np.asarray(bp_fast._accumulate_factor(
-            rc2, u0, pa, pb, pc, b_t, c_t, plan, sub_p))
-        for feed in ("windows", "spectra"):
-            got = np.asarray(bp_factor_kernel.accumulate_factor_pallas(
-                rc2, u0, pa, pb, pc, b_t, c_t, plan, sub_p, interpret=True,
-                feed=feed))
-            err = np.abs(got - want).max() / np.abs(want).max()
-            assert err < 2e-4, (feed, err)
-
-    def test_pallas_path_meets_oracle(self):
-        """focus_bp_fast with the pallas accumulate (interpret mode, w=64
-        plan) against the upsampled f64 oracle."""
-        raw, traj, p, t0 = _scene()
-        vf = np.zeros(3)
-        plan = bp_fast.make_plan(p, traj.positions, traj.times, t0, w_win=64)
-        from nis_sar_amtigmti_video_tpu.ops.pallas import bp_kernel
-        assert bp_kernel.supported(plan)
-        want = _oracle_upsampled(raw, traj, p, t0, vf)
-        got = np.asarray(bp_fast.focus_bp_fast(
-            cplx.to_device(raw), traj.positions, traj.velocities,
-            traj.times, vf, t0, p, plan=plan,
-            accumulate="pallas_interpret"))
-        _check(got, want)
-
-    def test_pallas_recenter_presum_matches_xla(self):
-        """Fused compress+recentre+presum four-step FFT kernel (interpret)
-        vs recenter_presum with the same fused matched filter."""
-        from nis_sar_amtigmti_video_tpu.ops.pallas import fft_kernel
-
-        rng = np.random.default_rng(7)
-        n_p, ns = 6, 10000                    # nfft = 16384 (B1 = 128)
-        sc = cfg.videosar()
-        g = sc.geometry
-        times = orbit.slow_time_grid(n_p / 5000.0, n_p)
-        traj = orbit.make_trajectory(g, times)
-        p = bp_ops.BpParams(fc_hz=9.65e9, chirp_rate=150e6 / 2e-6,
-                            fs_hz=180e6, pulse_width_s=2e-6,
-                            num_samples=ns, nx=64, ny=64,
-                            scene_size_m=400.0)
-        t_ref = float(2.0 * np.linalg.norm(traj.positions, axis=1).mean()
-                      / C)
-        rc = jnp.asarray(rng.standard_normal((n_p, ns))
-                         + 1j * rng.standard_normal((n_p, ns)),
-                         jnp.complex64)
-        pos = jnp.asarray(traj.positions)
-        vel = jnp.asarray(traj.velocities)
-        ts = jnp.asarray(traj.times)
-        vf = jnp.zeros(3, jnp.float64)
-        d = 3
-        ref_conj = bp_fast.matched_filter_spectrum(p, 16384)
-        want = bp_fast.recenter_presum(rc, pos, vel, ts, vf, p, d, t_ref,
-                                       ref_conj=ref_conj)
-        got = fft_kernel.recenter_presum_pallas(rc, pos, vel, ts, vf, p, d,
-                                                t_ref, interpret=True)
-        w0 = np.asarray(want[0])
-        g0 = np.asarray(got[0])
-        assert g0.shape == w0.shape
-        err = np.abs(g0 - w0).max() / np.abs(w0).max()
-        assert err < 3e-4, err
-        for a, b in zip(want[1:], got[1:]):
-            np.testing.assert_allclose(np.asarray(a), np.asarray(b))
-
     def test_streaming_spectra_split_matches_fused(self):
         """The streaming-VideoSAR recentre split (cacheable forward spectra
-        + per-frame ramp/presum/inverse) must reproduce the fused recentre
-        kernel exactly, and the focus_bp_fast raw_spectra= entry must match
-        the raw-pulse path within the recentre kernel's f32 class."""
-        from nis_sar_amtigmti_video_tpu.ops.pallas import fft_kernel
-
-        rng = np.random.default_rng(8)
-        n_p, ns = 6, 10000                    # nfft = 16384 (B1 = 128)
-        sc = cfg.videosar()
-        g = sc.geometry
-        times = orbit.slow_time_grid(n_p / 5000.0, n_p)
-        traj = orbit.make_trajectory(g, times)
-        p = bp_ops.BpParams(fc_hz=9.65e9, chirp_rate=150e6 / 2e-6,
-                            fs_hz=180e6, pulse_width_s=2e-6,
-                            num_samples=ns, nx=64, ny=64,
-                            scene_size_m=400.0)
-        t_ref = float(2.0 * np.linalg.norm(traj.positions, axis=1).mean()
-                      / C)
-        rc = jnp.asarray(rng.standard_normal((n_p, ns))
-                         + 1j * rng.standard_normal((n_p, ns)),
-                         jnp.complex64)
-        pos = jnp.asarray(traj.positions)
-        vel = jnp.asarray(traj.velocities)
-        ts = jnp.asarray(traj.times)
-        vf = jnp.zeros(3, jnp.float64)
+        + per-frame ramp/presum/inverse) must reproduce the fused XLA
+        recentre (recenter_presum with the matched filter), and the
+        focus_bp_fast raw_spectra= entry must match the raw-pulse path."""
+        rc, pos, vel, ts, vf, p, t_ref = _stream_case(6, 10000, seed=8)
         d = 3
-        # kernel level: split == fused, bit-for-bit (same dots, same ramp)
-        fused = fft_kernel.recenter_presum_pallas(rc, pos, vel, ts, vf, p,
-                                                  d, t_ref, interpret=True)
-        spec = fft_kernel.forward_spectra_pallas(rc, p, interpret=True)
-        split = fft_kernel.recentre_from_spectra_pallas(
-            spec, pos, vel, ts, vf, p, d, t_ref, interpret=True)
-        np.testing.assert_allclose(np.asarray(split[0]),
-                                   np.asarray(fused[0]), rtol=0, atol=0)
-        # focus level: raw_spectra= == raw-pulse path (XLA recentre there,
-        # f32 factored ramps here: the recenter kernel's tolerance class)
-        t0 = t_ref - 0.5 * ns / p.fs_hz
-        plan = bp_fast.make_plan(p, np.asarray(traj.positions),
-                                 np.asarray(traj.times), float(t0))
+        ref_conj = bp_fast.matched_filter_spectrum(p, 16384)
+        fused = bp_fast.recenter_presum(rc, pos, vel, ts, vf, p, d, t_ref,
+                                        ref_conj=ref_conj)
+        spec = bp_fast.forward_spectra(rc, p)
+        assert spec.shape == (6, 16384)
+        split = bp_fast.recentre_from_spectra(spec, pos, vel, ts, vf, p, d,
+                                              t_ref)
+        w0, g0 = np.asarray(fused[0]), np.asarray(split[0])
+        assert g0.shape == w0.shape
+        assert np.abs(g0 - w0).max() < 1e-5 * np.abs(w0).max()
+        for a, b in zip(fused[1:], split[1:]):
+            np.testing.assert_allclose(np.asarray(a), np.asarray(b))
+        # focus level: raw_spectra= == raw-pulse path
+        t0 = t_ref - 0.5 * 10000 / p.fs_hz
+        plan = bp_fast.make_plan(p, np.asarray(pos), np.asarray(ts),
+                                 float(t0))
         want = np.asarray(bp_fast.focus_bp_fast(
             rc, pos, vel, ts, vf, t0, p, plan=plan, accumulate="xla"))
         got = np.asarray(bp_fast.focus_bp_fast(
             None, pos, vel, ts, vf, t0, p, plan=plan, accumulate="xla",
-            raw_spectra=bp_fast.forward_spectra(rc, p)))
+            raw_spectra=spec))
         err = np.abs(got - want).max() / np.abs(want).max()
         assert err < 1e-3, err
 
     def test_streaming_ring_offset_matches_chronological(self):
         """A ring-ordered spectra buffer (slot j = chronological pulse
         (j - off) % P) with ring_offset=off must reproduce the
-        chronological split call: the streaming product advances the
+        chronological call: the streaming product advances the
         cached-spectra window by dynamic_update_slice instead of
         re-concatenating it each frame."""
-        from nis_sar_amtigmti_video_tpu.ops.pallas import fft_kernel
-
-        rng = np.random.default_rng(11)
-        n_p, ns, d = 12, 10000, 3             # blk = d*groups = 6 | 12
-        sc = cfg.videosar()
-        g = sc.geometry
-        times = orbit.slow_time_grid(n_p / 5000.0, n_p)
-        traj = orbit.make_trajectory(g, times)
-        p = bp_ops.BpParams(fc_hz=9.65e9, chirp_rate=150e6 / 2e-6,
-                            fs_hz=180e6, pulse_width_s=2e-6,
-                            num_samples=ns, nx=64, ny=64,
-                            scene_size_m=400.0)
-        t_ref = float(2.0 * np.linalg.norm(traj.positions, axis=1).mean()
-                      / C)
-        rc = jnp.asarray(rng.standard_normal((n_p, ns))
-                         + 1j * rng.standard_normal((n_p, ns)),
-                         jnp.complex64)
-        pos = jnp.asarray(traj.positions)
-        vel = jnp.asarray(traj.velocities)
-        ts = jnp.asarray(traj.times)
-        vf = jnp.zeros(3, jnp.float64)
-        spec = fft_kernel.forward_spectra_pallas(rc, p, interpret=True)
-        want = fft_kernel.recentre_from_spectra_pallas(
-            spec, pos, vel, ts, vf, p, d, t_ref, interpret=True)
-        for off in (3, 6, 9):                 # multiples of d, incl. != blk
-            ring = jnp.roll(spec, off, axis=0)
-            got = fft_kernel.recentre_from_spectra_pallas(
-                ring, pos, vel, ts, vf, p, d, t_ref, interpret=True,
+        rc, pos, vel, ts, vf, p, t_ref = _stream_case(12, 10000, seed=11)
+        d = 3
+        spec = bp_fast.forward_spectra(rc, p)
+        want = bp_fast.recentre_from_spectra(spec, pos, vel, ts, vf, p, d,
+                                             t_ref)
+        for off in (3, 6, 9):
+            got = bp_fast.recentre_from_spectra(
+                jnp.roll(spec, off, axis=0), pos, vel, ts, vf, p, d, t_ref,
                 ring_offset=jnp.int32(off))
-            # blk=6 forces the ring call onto the wide scalar layout
-            # (statically unrolled presum); XLA-CPU interpret fuses the
-            # unrolled ramp into FMAs, so ring-vs-chronological differs at
-            # the FMA class here (on TPU the two layouts measure exactly
-            # equal — scripts/probe_bp_stream.py rel-err 0.0)
             np.testing.assert_allclose(np.asarray(got[0]),
                                        np.asarray(want[0]), rtol=0,
                                        atol=5e-6 * float(
@@ -477,13 +338,13 @@ class TestFastBp:
             for a, b in zip(want[1:], got[1:]):
                 np.testing.assert_allclose(np.asarray(a), np.asarray(b))
         with pytest.raises(ValueError, match="ring_offset"):
-            fft_kernel.recentre_from_spectra_pallas(
+            bp_fast.recentre_from_spectra(
                 spec[:-2], pos[:-2], vel[:-2], ts[:-2], vf, p, d, t_ref,
-                interpret=True, ring_offset=jnp.int32(3))
+                ring_offset=jnp.int32(3))
         # focus level: a ring-ordered buffer + ring_offset == chronological
-        t0 = t_ref - 0.5 * ns / p.fs_hz
-        plan = bp_fast.make_plan(p, np.asarray(traj.positions),
-                                 np.asarray(traj.times), float(t0))
+        t0 = t_ref - 0.5 * 10000 / p.fs_hz
+        plan = bp_fast.make_plan(p, np.asarray(pos), np.asarray(ts),
+                                 float(t0))
         want_img = np.asarray(bp_fast.focus_bp_fast(
             None, pos, vel, ts, vf, t0, p, presum=d, plan=plan,
             accumulate="xla", raw_spectra=spec))
@@ -493,6 +354,64 @@ class TestFastBp:
             ring_offset=jnp.int32(6)))
         err = np.abs(got_img - want_img).max() / np.abs(want_img).max()
         assert err < 1e-6, err
+
+    @pytest.mark.parametrize("band", [None, (37, 613)],
+                             ids=["full", "band"])
+    @pytest.mark.parametrize("presum", [1, 3])
+    @pytest.mark.parametrize("where", ["zero", "d", "mid", "last"])
+    def test_recentre_from_spectra_matches_recenter_presum(self, where,
+                                                           presum, band):
+        """recentre_from_spectra on a ring-ordered buffer (offsets 0, d,
+        mid and P-d) == recenter_presum on the chronological raw pulses,
+        with and without the band-limited output."""
+        n_p, ns = 12, 1000                     # nfft = 1024
+        rc, pos, vel, ts, vf, p, t_ref = _stream_case(n_p, ns, seed=5)
+        d = presum
+        off = {"zero": 0, "d": d, "mid": (n_p // 2) // d * d,
+               "last": n_p - d}[where]
+        want = bp_fast.recenter_presum(
+            rc, pos, vel, ts, vf, p, d, t_ref,
+            ref_conj=bp_fast.matched_filter_spectrum(p, 1024))
+        ring = jnp.roll(bp_fast.forward_spectra(rc, p), off, axis=0)
+        got = bp_fast.recentre_from_spectra(
+            ring, pos, vel, ts, vf, p, d, t_ref, out_band=band,
+            ring_offset=jnp.int32(off))
+        w0 = np.asarray(want[0])
+        if band is not None:
+            w0 = w0[:, band[0]:band[1]]
+        g0 = np.asarray(got[0])
+        assert g0.shape == w0.shape == (n_p // d, w0.shape[1])
+        assert np.abs(g0 - w0).max() < 1e-5 * np.abs(w0).max()
+        for a, b in zip(want[1:], got[1:]):
+            np.testing.assert_allclose(np.asarray(a), np.asarray(b))
+
+    def test_recentre_from_spectra_rejects_bad_band(self):
+        rc, pos, vel, ts, vf, p, t_ref = _stream_case(4, 1000, seed=2)
+        with pytest.raises(ValueError, match="out_band"):
+            bp_fast.recentre_from_spectra(
+                bp_fast.forward_spectra(rc, p), pos, vel, ts, vf, p, 1,
+                t_ref, out_band=(10, 2000))
+
+    @pytest.mark.parametrize("removed", ["pallas", "factor_pallas",
+                                         "factor_kernel", "factor2_pallas"])
+    def test_removed_accumulate_rejected(self, removed):
+        """Accumulate values of the removed kernels raise, naming the
+        valid choices, instead of silently running another path."""
+        plan = bp_fast.FastBpPlan(ny_i=8, nx_i=8, w_win=32, stride=1,
+                                  band_start=0, nfft=64, dx_m=1.0,
+                                  t_ref=1e-3, n_org=10.0)
+        with pytest.raises(ValueError, match="xla, factor, factor2"):
+            bp_fast.accumulate_image(None, (None,) * 6, plan, removed)
+
+    def test_pick_accumulate_follows_plan_levels(self):
+        base = dict(ny_i=8, nx_i=8, w_win=32, stride=1, band_start=0,
+                    nfft=64, dx_m=1.0, t_ref=1e-3, n_org=10.0)
+        pick = bp_fast.pick_accumulate
+        assert pick(bp_fast.FastBpPlan(**base)) == "xla"
+        assert pick(bp_fast.FastBpPlan(**base, sub_raw=4, nx_c=32)) == "factor"
+        assert pick(bp_fast.FastBpPlan(**base, sub_raw=4, nx_c=32,
+                                       sub_raw1=2, nx_c1=16, grp=2)
+                    ) == "factor2"
 
     def test_band_does_not_fit_raises(self):
         raw, traj, p, t0 = _scene(ns=512)

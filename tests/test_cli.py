@@ -15,6 +15,24 @@ class TestFastCommands:
         main(["--out", str(tmp_path), "targets"])
         assert (tmp_path / "targets_preview.png").exists()
 
+    @pytest.mark.parametrize("missing,dist", [("matplotlib", "matplotlib"),
+                                              ("PIL", "Pillow")])
+    def test_missing_render_dependency_is_named(self, tmp_path, monkeypatch,
+                                                missing, dist):
+        """Without a render dependency the CLI says which package is
+        missing instead of failing deep inside the render step."""
+        import sys
+        for mod in [m for m in sys.modules
+                    if m == missing or m.startswith(missing + ".")]:
+            monkeypatch.delitem(sys.modules, mod)
+        monkeypatch.setitem(sys.modules, missing, None)
+        cmd = "targets" if missing == "matplotlib" else "videosar"
+        extra = [] if cmd == "targets" else ["--frames", "1"]
+        with pytest.raises(SystemExit) as exc:
+            main(["--out", str(tmp_path), "--small", "--no-noise", cmd,
+                  *extra])
+        assert dist in str(exc.value) and "not installed" in str(exc.value)
+
     def test_world(self, tmp_path):
         main(["--out", str(tmp_path), "world"])
         for f in ("world.obj", "world.mtl", "world_preview.png",

@@ -73,12 +73,11 @@ class TestShardedGmti:
                                    atol=1e-3)
 
     def test_latency_mode_one_cpi(self):
-        """Latency-mode composition (VERDICT r3 item 9): ONE CPI spread over
-        the whole mesh — F=1 on a (1, 2, 4) mesh, so the 2 channels ride
-        'chan' and the range axis splits 4-way over 'seq'. Every product
-        (balance, ATI, DPCA, CFAR, cancellation) must equal the composed
-        single-device pipeline; this is the runnable step behind
-        docs/SCALING.md §2's sequence-parallel latency projection."""
+        """Latency-mode composition: ONE CPI spread over the whole mesh —
+        F=1 on a (1, 2, 4) mesh, so the 2 channels ride 'chan' and the
+        range axis splits 4-way over 'seq'. Every product (balance, ATI,
+        DPCA, CFAR, cancellation) must equal the composed single-device
+        pipeline."""
         n_az, n_rg = 64, 256
         p = _params(n_az, n_rg)
         key = jax.random.PRNGKey(3)
@@ -108,8 +107,8 @@ class TestShardedGmti:
         assert np.isfinite(float(np.asarray(out.cancellation)))
 
     def test_halo_cfar_bitexact(self):
-        """The ppermute halo-exchange CFAR (round-5: replaces the
-        full-plane all_gather) must reproduce the single-device detector
+        """The ppermute halo-exchange CFAR (in place of a full-plane
+        all_gather) must reproduce the single-device detector
         BIT-EXACTLY on a fixed power plane: interior shards read true
         neighbor training columns; mesh-edge shards read ppermute's zero
         fill, which is exactly ca_cfar's zero padding."""
@@ -134,6 +133,29 @@ class TestShardedGmti:
             got = np.asarray(f(jnp.asarray(pw)))
             want = np.asarray(cfar.ca_cfar(jnp.asarray(pw), cp).snr)
             np.testing.assert_array_equal(got, want)
+
+    @pytest.mark.parametrize("guard,train", [(0, 4), (0, 1), (0, 8)])
+    def test_halo_cfar_zero_half_window(self, guard, train):
+        """A zero inner half-window (guard=0) must exchange an EMPTY
+        halo for it — a negative-zero slice would ship the whole shard —
+        and still match the single-device detector bit-exactly."""
+        from functools import partial
+
+        from jax.sharding import Mesh, PartitionSpec as P
+
+        rng = np.random.default_rng(5)
+        n_az, n_rg, n_seq = 32, 256, 4
+        pw = (rng.standard_normal((n_az, n_rg)) ** 2).astype(np.float32)
+        mesh = Mesh(np.array(jax.devices()[:n_seq]).reshape(1, n_seq),
+                    ("chan", "seq"))
+        cp = cfar.CfarParams(guard=guard, train=train)
+        body = partial(distributed._cfar_snr_halo, cfar_params=cp,
+                       n_seq=n_seq, ns_global=n_rg)
+        f = jax.jit(jax.shard_map(body, mesh=mesh, in_specs=P(None, "seq"),
+                                  out_specs=P(None, "seq"), check_vma=False))
+        got = np.asarray(f(jnp.asarray(pw)))
+        want = np.asarray(cfar.ca_cfar(jnp.asarray(pw), cp).snr)
+        np.testing.assert_array_equal(got, want)
 
     def test_halo_cfar_too_narrow_raises(self):
         from functools import partial

@@ -1,4 +1,4 @@
-"""Golden tests: TPU echo engine vs the NumPy oracle, all engine variants."""
+"""Golden tests: the JAX echo engine vs the NumPy oracle, all engine variants."""
 
 import numpy as np
 import pytest
@@ -74,6 +74,16 @@ class TestMonostatic:
         a = cplx.to_host(phase_history(traj, tgts, opts_a, t_start=t0))
         b = cplx.to_host(phase_history(traj, tgts, opts_b, t_start=t0))
         np.testing.assert_allclose(a, b, rtol=0, atol=2e-4 * np.abs(a).max())
+
+    @pytest.mark.parametrize("removed", ["pallas", "pallas_interpret"])
+    def test_removed_backend_rejected(self, sat, removed):
+        """The removed kernel backends raise, naming the valid choices,
+        instead of falling through to another engine."""
+        g, traj = sat
+        opts = small_opts(backend=removed)
+        t0 = window_start_time(g.slant_range_m, opts, 6e-6, "reference")
+        with pytest.raises(ValueError, match="jnp, freq"):
+            phase_history(traj, T.destroyer(), opts, t_start=t0)
 
 
 class TestBistatic:

@@ -67,7 +67,7 @@ class TestFreqBackend:
         assert err_db < -55.0
 
     def test_approximate_mode_still_available(self, scene):
-        """freq_edge_taper=0 keeps the cheaper round-1 approximate class
+        """freq_edge_taper=0 keeps the cheaper approximate class
         (~-25 dB floor) for bulk data generation."""
         g, traj, tgts, t0 = scene
         a = cplx.to_host(phase_history(traj, tgts, _opts("jnp"), t_start=t0))
@@ -79,9 +79,9 @@ class TestFreqBackend:
         assert -40.0 < err_db < -25.0
 
     def test_dense_spreader_matches_scatter(self, scene):
-        """The one-hot MXU spreader (the TPU 'auto' pick) must reproduce
-        the scatter path on a delay-sorted interference-rich scene — the
-        adoption gate for every dense-path restructuring."""
+        """The one-hot matmul spreader must reproduce the scatter path on a
+        delay-sorted interference-rich scene — the adoption gate for every
+        dense-path restructuring."""
         g, traj, tgts, t0 = scene
         a = cplx.to_host(phase_history(
             traj, tgts, _opts("freq", freq_spreader="scatter"), t_start=t0))
@@ -90,7 +90,7 @@ class TestFreqBackend:
         assert np.abs(b - a).max() < 2e-5 * np.abs(a).max()
 
     def test_dense_spreader_group_sizing(self, scene):
-        """Tighter group windows (the HBM-bill knob) must stay exact while
+        """Tighter group windows (the memory-bill knob) must stay exact while
         every group's delay span fits the window."""
         g, traj, tgts, t0 = scene
         a = cplx.to_host(phase_history(
@@ -101,77 +101,68 @@ class TestFreqBackend:
             t_start=t0))
         assert np.abs(b - a).max() < 2e-5 * np.abs(a).max()
 
-    def test_dense_kernel_matches_dense_e2e(self, scene):
-        """The VMEM one-hot kernel (interpret mode) must reproduce the XLA
-        dense spreader through the full freq backend — exercises both the
-        main-pass single set and the shared two-set exact-edge pass."""
-        g, traj, tgts, t0 = scene
-        a = cplx.to_host(phase_history(
-            traj, tgts, _opts("freq", freq_spreader="dense"), t_start=t0))
-        b = cplx.to_host(phase_history(
-            traj, tgts, _opts("freq",
-                              freq_spreader="dense_kernel_interpret"),
-            t_start=t0))
-        assert np.abs(b - a).max() < 1e-6 * np.abs(a).max()
-
-    def test_dense_kernel_qr_matches_dense_e2e(self, scene):
-        """The digit-factorized (qr) spread kernel through the full freq
-        backend: f32-rounding-class equal to the XLA dense spreader (the
-        taps ride one MXU accumulator instead of the roll chain, so the
-        sums reassociate — not bit-identical like the plain kernel)."""
-        g, traj, tgts, t0 = scene
-        a = cplx.to_host(phase_history(
-            traj, tgts, _opts("freq", freq_spreader="dense"), t_start=t0))
-        b = cplx.to_host(phase_history(
-            traj, tgts, _opts("freq",
-                              freq_spreader="dense_kernel_qr_interpret"),
-            t_start=t0))
-        assert np.abs(b - a).max() < 1e-5 * np.abs(a).max()
-
-    def test_dense_kernel_qr_spread_unit(self):
-        """_spread_dense impl='pallas_qr_interpret' == impl='xla' on a raw
-        multi-set spread with out-of-grid targets and duplicate cells."""
-        from nis_sar_amtigmti_video_tpu.ops import echo_freq as ef
+    @pytest.mark.parametrize("spreader", ["dense", "scatter"])
+    def test_spreader_drops_all_taps_of_masked_targets(self, spreader):
+        """Targets whose every tap falls off the spreading grid (echoes far
+        before or after the window) deposit NOTHING: adding them to a
+        delay-sorted scene leaves the synthesized field unchanged — the
+        dense spreader's clamp-to-margin and the scatter spreader's
+        in-grid mask, through the main and the exact-edge passes."""
         import jax.numpy as jnp
-        rng = np.random.default_rng(7)
-        pc, num_b, k, l_out = 3, 200, 6, 900
-        i0 = np.sort(rng.integers(-40, l_out + 20, (pc, num_b)), axis=1)
-        sets = []
-        for off in (0, 37):
-            vr = rng.normal(size=(pc, num_b, k)).astype(np.float32)
-            vi = rng.normal(size=(pc, num_b, k)).astype(np.float32)
-            sets.append((jnp.asarray(vr), jnp.asarray(vi), off))
-        args = (jnp.asarray(i0, jnp.int32), sets, l_out, 512, 8)
-        ar, ai = ef._spread_dense(*args, lo=64, impl="xla")
-        br, bi = ef._spread_dense(*args, lo=64, impl="pallas_qr_interpret")
-        scale = float(np.abs(np.asarray(ar)).max()) + 1e-9
-        assert np.abs(np.asarray(br) - np.asarray(ar)).max() < 1e-5 * scale
-        assert np.abs(np.asarray(bi) - np.asarray(ai)).max() < 1e-5 * scale
-
-    @pytest.mark.parametrize("impl", ["pallas_interpret",
-                                      "pallas_qr_interpret"])
-    def test_spread_kernel_drops_all_taps_of_masked_targets(self, impl):
-        """A target dropped by the group cell-spread rule (c = -1 with
-        nonzero tap values) must deposit NOTHING at any tap. The qr
-        kernel's per-tap digit one-hot re-enters the valid range at
-        c + k for k >= 1 unless the mask is pinned per tap."""
         from nis_sar_amtigmti_video_tpu.ops import echo_freq as ef
-        import jax.numpy as jnp
+        opts = _opts("freq", freq_spreader=spreader)
         rng = np.random.default_rng(11)
-        pc, num_b, k, l_out, win, grp = 2, 8, 6, 600, 128, 2
-        # one group spans cells 0..400 > win - k: the far targets get
-        # masked to c = -1 while carrying nonzero values
-        i0 = np.tile(np.array([[0, 5, 9, 400, 0, 3, 7, 420]]), (pc, 1))
-        vr = rng.normal(size=(pc, num_b, k)).astype(np.float32)
-        vi = rng.normal(size=(pc, num_b, k)).astype(np.float32)
-        args = (jnp.asarray(i0, jnp.int32), [(jnp.asarray(vr),
-                                              jnp.asarray(vi), 0)],
-                l_out, win, grp)
-        ar, ai = ef._spread_dense(*args, lo=16, impl="xla")
-        br, bi = ef._spread_dense(*args, lo=16, impl=impl)
-        scale = float(np.abs(np.asarray(ar)).max()) + 1e-9
-        assert np.abs(np.asarray(br) - np.asarray(ar)).max() < 1e-5 * scale
-        assert np.abs(np.asarray(bi) - np.asarray(ai)).max() < 1e-5 * scale
+        n_p, n_live, n_far = 3, 24, 4
+        live = np.sort(rng.uniform(0.5e-6, 5.0e-6, (n_p, n_live)), axis=1)
+        before = np.full((n_p, n_far), -60e-6) + 1e-7 * np.arange(n_far)
+        after = np.full((n_p, n_far), 90e-6) + 1e-7 * np.arange(n_far)
+
+        def synth(tau):
+            b = tau.shape[1]
+            car = rng.uniform(-np.pi, np.pi, (n_p, b)).astype(np.float32)
+            amp = rng.uniform(0.5, 2.0, (n_p, b)).astype(np.float32)
+            return car, amp
+
+        car_l, amp_l = synth(live)
+        car_f, amp_f = synth(np.concatenate([before, after], axis=1))
+        tau_all = np.concatenate([before, live, after], axis=1)
+        car_all = np.concatenate([car_f[:, :n_far], car_l, car_f[:, n_far:]],
+                                 axis=1)
+        amp_all = np.concatenate([amp_f[:, :n_far], amp_l, amp_f[:, n_far:]],
+                                 axis=1)
+        want = np.asarray(ef.synthesize(jnp.asarray(live), jnp.asarray(car_l),
+                                        jnp.asarray(amp_l), opts,
+                                        spreader=spreader))
+        got = np.asarray(ef.synthesize(jnp.asarray(tau_all),
+                                       jnp.asarray(car_all),
+                                       jnp.asarray(amp_all), opts,
+                                       spreader=spreader))
+        assert np.abs(want).max() > 0
+        assert np.abs(got - want).max() < 1e-6 * np.abs(want).max()
+
+    @pytest.mark.parametrize("removed", ["dense_kernel", "dense_kernel_qr",
+                                         "dense_kernel_interpret"])
+    def test_removed_spreader_rejected(self, scene, removed):
+        """Spreader values of the removed kernels raise, naming the valid
+        choices, instead of silently picking another spreader."""
+        g, traj, tgts, t0 = scene
+        with pytest.raises(ValueError, match="auto, scatter, dense"):
+            phase_history(traj, tgts, _opts("freq", freq_spreader=removed),
+                          t_start=t0)
+
+    def test_spread_win_edge_error_names_the_override(self, scene):
+        """A bad edge-pass window names the override that failed (and the
+        main window when the edge one is derived from it)."""
+        g, traj, tgts, t0 = scene
+        with pytest.raises(ValueError, match="spread_win_edge must"):
+            phase_history(traj, tgts, _opts("freq", freq_spread_win_edge=200),
+                          t_start=t0)
+        with pytest.raises(ValueError, match=r"spread_win // 2 of 384"):
+            phase_history(traj, tgts, _opts("freq", freq_spread_win=384),
+                          t_start=t0)
+        with pytest.raises(ValueError, match="spread_win must be"):
+            phase_history(traj, tgts, _opts("freq", freq_spread_win=300),
+                          t_start=t0)
 
     def test_geom_interp_split_matches_f64(self, scene):
         """freq_geom_interp='split' (f64 only at the anchors; f32 delta
@@ -196,51 +187,6 @@ class TestFreqBackend:
             phase_history(traj, tgts,
                           _opts("freq", freq_geom_interp="fast"),
                           t_start=t0)
-
-    def test_dense_kernel_spread_unit(self):
-        """_spread_dense impl='pallas_interpret' == impl='xla' on a raw
-        multi-set spread with out-of-grid targets and duplicate cells."""
-        from nis_sar_amtigmti_video_tpu.ops import echo_freq as ef
-        import jax.numpy as jnp
-        rng = np.random.default_rng(7)
-        pc, num_b, k, l_out = 3, 200, 6, 900
-        i0 = np.sort(rng.integers(-40, l_out + 20, (pc, num_b)), axis=1)
-        sets = []
-        for off in (0, 37):
-            vr = rng.normal(size=(pc, num_b, k)).astype(np.float32)
-            vi = rng.normal(size=(pc, num_b, k)).astype(np.float32)
-            sets.append((jnp.asarray(vr), jnp.asarray(vi), off))
-        args = (jnp.asarray(i0, jnp.int32), sets, l_out, 512, 8)
-        ar, ai = ef._spread_dense(*args, lo=64, impl="xla")
-        br, bi = ef._spread_dense(*args, lo=64, impl="pallas_interpret")
-        scale = float(np.abs(np.asarray(ar)).max()) + 1e-9
-        assert np.abs(np.asarray(br) - np.asarray(ar)).max() < 1e-5 * scale
-        assert np.abs(np.asarray(bi) - np.asarray(ai)).max() < 1e-5 * scale
-
-    def test_fused_conv_matches_xla(self):
-        """conv='pallas_interpret' (fused four-step FFT convolution) ==
-        conv='xla' through synthesize at a window long enough for the
-        kernel's supported FFT range (l_fft >= 16384)."""
-        import jax.numpy as jnp
-        from nis_sar_amtigmti_video_tpu.ops import echo_freq as ef
-        from nis_sar_amtigmti_video_tpu.ops.pallas import fft_kernel
-        opts = _opts("freq", num_samples=4000)
-        rng = np.random.default_rng(11)
-        P, B = 3, 48
-        tau = jnp.asarray(np.sort(rng.uniform(5e-6, 5.5e-5, (P, B)), axis=1))
-        car = jnp.asarray(rng.uniform(-np.pi, np.pi, (P, B)
-                                      ).astype(np.float32))
-        amp = jnp.asarray(rng.uniform(0.5, 2.0, (P, B)).astype(np.float32))
-        # self-check: this shape must actually reach the kernel (no silent
-        # xla fallback making the comparison vacuous)
-        os_ = opts.freq_oversample
-        lead = int(round(opts.pulse_width_s * opts.fs_hz * os_)) + os_ + 8
-        l_fft = 1 << (lead + 4000 * os_ + os_ + 8 - 1).bit_length()
-        assert fft_kernel.supported(l_fft)
-        a = np.asarray(ef.synthesize(tau, car, amp, opts, conv="xla"))
-        b = np.asarray(ef.synthesize(tau, car, amp, opts,
-                                     conv="pallas_interpret"))
-        assert np.abs(b - a).max() < 3e-5 * np.abs(a).max()
 
     def test_endpoint_grid_rejected(self, scene):
         g, traj, tgts, t0 = scene

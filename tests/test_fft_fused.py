@@ -1,4 +1,4 @@
-"""MXU matmul FFT and the fused (grid-free) CSA path."""
+"""Four-step matmul FFT and the fused (grid-free) CSA path."""
 
 import numpy as np
 import pytest
@@ -46,8 +46,7 @@ class TestMxuFft:
 
     # the four-step factorization is exact for ANY composite n = n1*n2 —
     # including the reference full-scale lengths (7,199 = 23*313 azimuth
-    # after the DPCA shift, 13,200 = 120*110 range) that the pow2-only
-    # table used to hand to XLA's slow non-pow2 TPU FFT
+    # after the DPCA shift, 13,200 = 120*110 range)
     @pytest.mark.parametrize("n", [360, 437, 1320, 7199, 13200])
     def test_composite_forward_matches_numpy(self, n):
         assert mfft.supported(n)
@@ -115,10 +114,19 @@ class TestFftImplRegressions:
             assert callable(f) and callable(fi)
 
     def test_auto_impl_resolves_by_backend(self):
-        # on the CPU test harness 'auto' must be stock jnp.fft; on TPU it
-        # resolves to the adaptive MXU pair (probe_csa_fullscale_fft.py)
+        # 'auto' is the stock jnp.fft (cuFFT on the GPU) on every backend
         f, fi = mfft.get_impl("auto")
-        want = ((mfft.fft, mfft.ifft)
-                if jax.default_backend() == "tpu"
-                else (jnp.fft.fft, jnp.fft.ifft))
-        assert (f, fi) == want
+        assert (f, fi) == (jnp.fft.fft, jnp.fft.ifft)
+
+    def test_removed_pallas_impl_rejected(self):
+        """fft_impl='pallas' (the removed CSA megakernel) raises, naming
+        the valid choices, from both get_impl and the fused CSA."""
+        with pytest.raises(ValueError, match="auto, xla, mxu, hybrid"):
+            mfft.get_impl("pallas")
+        p = csa_ops.CsaParams(wavelength_m=0.031, chirp_rate=1e13,
+                              fs_hz=60e6, prf_hz=1000.0, velocity_mps=7000.0,
+                              range_ref_m=5e5, t_start_fast=3.3e-3,
+                              num_pulses=16, num_samples=32)
+        with pytest.raises(ValueError, match="auto, xla, mxu, hybrid"):
+            csa_ops.apply_csa_fused(jnp.zeros((16, 32), jnp.complex64),
+                                    csa_ops.csa_factors(p), "pallas")

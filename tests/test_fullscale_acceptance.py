@@ -12,7 +12,8 @@ Runtime is ~30-60 min on one CPU core, so the test is gated:
 
     NIS_SAR_FULLSCALE=1 python -m pytest tests/test_fullscale_acceptance.py -s
 
-Results of the most recent gated run are recorded in docs/ROUND2_NOTES.md.
+On the GPU, ``python chip_smoke.py --fullscale-oracle`` runs the same
+comparison on both echo engines.
 """
 
 import os
@@ -40,8 +41,8 @@ def test_fullscale_two_channel_acceptance():
     sc = cfg.ati_dpca()
     # NIS_SAR_FULLSCALE_BACKEND selects the echo engine under test:
     # 'jnp' (the preset default — direct engine) or 'freq' (the bench's
-    # production NUFFT path; round-5 recertifies it at the shipped
-    # echo_oversample=2 default). The freq backend needs a uniform grid.
+    # production NUFFT path at the shipped echo_oversample=2 default).
+    # The freq backend needs a uniform grid.
     backend = os.environ.get("NIS_SAR_FULLSCALE_BACKEND", "jnp")
     if backend == "freq":
         # the NUFFT path needs the uniform fast-time grid, which

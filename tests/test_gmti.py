@@ -230,317 +230,3 @@ class TestFusedStep:
         np.testing.assert_allclose(np.asarray(dmag),
                                    np.abs(np.asarray(s1 - s2)), rtol=2e-5,
                                    atol=1e-6)
-
-
-class TestModelKernelPath:
-    def test_model_kernel_fused_matches_composed(self):
-        """models/gmti.focus_and_products(path='kernel_fused') — the model
-        surface for the streaming headline path — vs the composed path on
-        the same raw pair (interpret mode)."""
-        sc = reduced_ati_scenario()
-        rng = np.random.default_rng(11)
-        raw = jnp.asarray((rng.standard_normal((2, 257, 256))
-                           + 1j * rng.standard_normal((2, 257, 256))
-                           ).astype(np.complex64))
-        # 257 pulses -> 256 after the one-pulse DPCA shift (square CPI)
-        t0 = 2.0 * sc.geometry.slant_range_m / C - 1e-6
-        want = gmti_model.focus_and_products(raw, sc, t0, path="composed")
-        got = gmti_model.focus_and_products(raw, sc, t0,
-                                            path="kernel_fused",
-                                            interpret=True)
-        s = np.abs(np.asarray(want.slc1)).max()
-        assert np.abs(np.asarray(got.slc1)
-                      - np.asarray(want.slc1)).max() / s < 2e-3
-        assert np.abs(np.asarray(got.dpca_mag)
-                      - np.asarray(want.dpca_mag)).max() / s < 2e-3
-        assert abs(float(got.cal_phase) - float(want.cal_phase)) < 1e-3
-        m = np.abs(np.asarray(want.ati_phase)) > 1e-6
-        d = np.abs(np.asarray(got.ati_phase) - np.asarray(want.ati_phase))
-        assert np.median(d[m]) < 5e-3
-        assert (abs(float(got.cancellation_ratio)
-                    - float(want.cancellation_ratio))
-                / float(want.cancellation_ratio) < 5e-3)
-
-    def test_model_kernel_fused_rejects_bad_shape(self):
-        sc = reduced_ati_scenario()
-        raw = jnp.zeros((2, 193, 256), jnp.complex64)   # 192 not square
-        with pytest.raises(ValueError, match="kernel_fused"):
-            gmti_model.focus_and_products(
-                raw, sc, 1e-3, path="kernel_fused", interpret=True)
-
-
-class TestFusedKernel:
-    """gmti/fused.py::gmti_cpi_pallas (interpret mode) vs pallas formation
-    composed with gmti_product_step — the kernel-fused CPI must reproduce
-    the products it replaces."""
-
-    def test_matches_composed_cpi(self):
-        import jax
-        import jax.numpy as jnp
-        from nis_sar_amtigmti_video_tpu import config as cfg2
-        from nis_sar_amtigmti_video_tpu.gmti import cfar
-        from nis_sar_amtigmti_video_tpu.gmti.fused import (gmti_cpi_pallas,
-                                                           gmti_product_step)
-        from nis_sar_amtigmti_video_tpu.ops import csa as csa_ops
-        from nis_sar_amtigmti_video_tpu.ops.echo import window_start_time
-        from nis_sar_amtigmti_video_tpu.ops.pallas import csa_kernel
-
-        size = 256
-        sc = cfg2.videosar()
-        g, r = sc.geometry, sc.radar
-        t0 = window_start_time(g.slant_range_m, None,
-                               sc.collect.window_length_s, "centered")
-        p = csa_ops.CsaParams(
-            wavelength_m=r.wavelength_m, chirp_rate=r.chirp_rate,
-            fs_hz=r.fs_hz, prf_hz=r.prf_hz,
-            velocity_mps=g.effective_velocity_mps,
-            range_ref_m=g.slant_range_m, t_start_fast=t0,
-            num_pulses=size, num_samples=size)
-        f = csa_ops.csa_factors(p)
-        cp = cfar.CfarParams(guard=2, train=8)
-
-        rng = np.random.default_rng(7)
-        x1 = (rng.standard_normal((size, size))
-              + 1j * rng.standard_normal((size, size))).astype(np.complex64)
-        # correlated second channel: balance phase is well-conditioned
-        x2 = (x1 * np.exp(1j * 0.31)
-              + 0.05 * (rng.standard_normal((size, size))
-                        + 1j * rng.standard_normal((size, size)))
-              ).astype(np.complex64)
-
-        # composed reference: pallas formation + fused product step
-        sr, si = csa_kernel.apply_csa_pallas_planes(
-            jnp.asarray(np.stack([x1.real, x2.real])),
-            jnp.asarray(np.stack([x1.imag, x2.imag])), f, interpret=True)
-        s1 = jax.lax.complex(sr[0], si[0])
-        s2 = jax.lax.complex(sr[1], si[1])
-        cal_c, phase_c, dmag_c, det_c = gmti_product_step(
-            s1, s2, cfar_params=cp)
-
-        (g1r, g1i, g2r, g2i, cal, phase, dmag,
-         det) = gmti_cpi_pallas(
-            jnp.asarray(x1.real), jnp.asarray(x1.imag),
-            jnp.asarray(x2.real), jnp.asarray(x2.imag), f,
-            cfar_params=cp, interpret=True)
-
-        # SLC planes identical math to the composed K3
-        np.testing.assert_allclose(np.asarray(g1r), np.asarray(sr[0]),
-                                   rtol=1e-5, atol=1e-3)
-        np.testing.assert_allclose(np.asarray(g2i), np.asarray(si[1]),
-                                   rtol=1e-5, atol=1e-3)
-        # balance phase via the raw-domain (Parseval) reduction
-        assert abs(float(cal) - float(cal_c)) < 1e-4
-
-        scale = float(np.abs(np.asarray(dmag_c)).max())
-        np.testing.assert_allclose(np.asarray(dmag), np.asarray(dmag_c),
-                                   atol=2e-3 * scale)
-        # snr: compare away from CFAR decision boundaries
-        snr_c = np.asarray(det_c.snr)
-        snr_g = np.asarray(det.snr)
-        np.testing.assert_allclose(snr_g, snr_c, rtol=5e-3, atol=5e-3)
-        # masked phase: compare where the mask margin is clear
-        mag = np.abs(np.asarray(s1)) ** 2
-        peak2 = mag.max()
-        thr = 0.05 ** 2 * peak2
-        clear = np.abs(mag - thr) > 1e-3 * peak2
-        pg, pc = np.asarray(phase), np.asarray(phase_c)
-        assert np.abs((pg - pc)[clear]).max() < 2e-3
-
-    def test_k4_epilogue_matches_xla(self):
-        """epilogue='pallas' (the round-5 single-pass K4 kernel: range box
-        sums + counts + noise/SNR + phase mask + dmag) vs the composed
-        XLA epilogue chain — everything except SNR/noise must be exact
-        (the mask/dmag read the same planes); SNR/noise differ only in
-        the lane box sum's f32 association."""
-        import jax.numpy as jnp
-        from nis_sar_amtigmti_video_tpu import config as cfg2
-        from nis_sar_amtigmti_video_tpu.gmti import cfar
-        from nis_sar_amtigmti_video_tpu.gmti.fused import gmti_cpi_pallas
-        from nis_sar_amtigmti_video_tpu.ops import csa as csa_ops
-        from nis_sar_amtigmti_video_tpu.ops.echo import window_start_time
-
-        size = 256
-        sc = cfg2.videosar()
-        g, r = sc.geometry, sc.radar
-        t0 = window_start_time(g.slant_range_m, None,
-                               sc.collect.window_length_s, "centered")
-        p = csa_ops.CsaParams(
-            wavelength_m=r.wavelength_m, chirp_rate=r.chirp_rate,
-            fs_hz=r.fs_hz, prf_hz=r.prf_hz,
-            velocity_mps=g.effective_velocity_mps,
-            range_ref_m=g.slant_range_m, t_start_fast=t0,
-            num_pulses=size, num_samples=size)
-        f = csa_ops.csa_factors(p)
-        cp = cfar.CfarParams(guard=2, train=8)
-        rng = np.random.default_rng(11)
-        x = [jnp.asarray(rng.standard_normal((size, size)
-                                             ).astype(np.float32))
-             for _ in range(4)]
-        o_pal = gmti_cpi_pallas(*x, f, cfar_params=cp, interpret=True,
-                                epilogue="pallas")
-        o_xla = gmti_cpi_pallas(*x, f, cfar_params=cp, interpret=True,
-                                epilogue="xla")
-        for a, b in zip(o_pal[:7], o_xla[:7]):
-            np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
-        for field in ("snr", "noise"):
-            a = np.asarray(getattr(o_pal[7], field))
-            b = np.asarray(getattr(o_xla[7], field))
-            np.testing.assert_allclose(a, b, rtol=1e-5,
-                                       atol=1e-6 * np.abs(b).max())
-        with pytest.raises(ValueError, match="unknown epilogue"):
-            gmti_cpi_pallas(*x, f, cfar_params=cp, interpret=True,
-                            epilogue="nope")
-
-    def test_phi1_table_matches_trig(self):
-        """phi1_table= (the round-5 precomputed Phi1 planes) vs the
-        in-kernel trig — same products to the trig-implementation
-        rounding class (~1e-7 phase: XLA vs Mosaic cos/sin)."""
-        import jax.numpy as jnp
-        from nis_sar_amtigmti_video_tpu import config as cfg2
-        from nis_sar_amtigmti_video_tpu.gmti import cfar
-        from nis_sar_amtigmti_video_tpu.gmti.fused import gmti_cpi_pallas
-        from nis_sar_amtigmti_video_tpu.ops import csa as csa_ops
-        from nis_sar_amtigmti_video_tpu.ops.echo import window_start_time
-        from nis_sar_amtigmti_video_tpu.ops.pallas import gmti_kernel
-
-        size = 256
-        sc = cfg2.videosar()
-        g, r = sc.geometry, sc.radar
-        t0 = window_start_time(g.slant_range_m, None,
-                               sc.collect.window_length_s, "centered")
-        p = csa_ops.CsaParams(
-            wavelength_m=r.wavelength_m, chirp_rate=r.chirp_rate,
-            fs_hz=r.fs_hz, prf_hz=r.prf_hz,
-            velocity_mps=g.effective_velocity_mps,
-            range_ref_m=g.slant_range_m, t_start_fast=t0,
-            num_pulses=size, num_samples=size)
-        f = csa_ops.csa_factors(p)
-        cp = cfar.CfarParams(guard=2, train=8)
-        rng = np.random.default_rng(13)
-        x = [jnp.asarray(rng.standard_normal((size, size)
-                                             ).astype(np.float32))
-             for _ in range(4)]
-        tab = gmti_kernel.phi1_tables(f)
-        o_t = gmti_cpi_pallas(*x, f, cfar_params=cp, interpret=True,
-                              phi1_table=tab)
-        o_r = gmti_cpi_pallas(*x, f, cfar_params=cp, interpret=True)
-        scale = float(np.abs(np.asarray(o_r[0])).max())
-        for a, b in zip(o_t[:4], o_r[:4]):
-            np.testing.assert_allclose(np.asarray(a), np.asarray(b),
-                                       rtol=0, atol=3e-5 * scale)
-        dscale = float(np.abs(np.asarray(o_r[6])).max())
-        np.testing.assert_allclose(np.asarray(o_t[6]), np.asarray(o_r[6]),
-                                   rtol=0, atol=1e-4 * dscale)
-
-    def test_fused2ch_k1_matches_split(self):
-        """k1_impl='fused2ch' (two-channel K1 + in-kernel balance) vs the
-        split path: same kernel math, so every output matches to f32
-        rounding and the balance phase is bit-for-bit (same association
-        order as raw_balance_pallas)."""
-        import jax.numpy as jnp
-        from nis_sar_amtigmti_video_tpu import config as cfg2
-        from nis_sar_amtigmti_video_tpu.gmti import cfar
-        from nis_sar_amtigmti_video_tpu.gmti.fused import gmti_cpi_pallas
-        from nis_sar_amtigmti_video_tpu.ops import csa as csa_ops
-        from nis_sar_amtigmti_video_tpu.ops.echo import window_start_time
-
-        size = 256
-        sc = cfg2.videosar()
-        g, r = sc.geometry, sc.radar
-        t0 = window_start_time(g.slant_range_m, None,
-                               sc.collect.window_length_s, "centered")
-        p = csa_ops.CsaParams(
-            wavelength_m=r.wavelength_m, chirp_rate=r.chirp_rate,
-            fs_hz=r.fs_hz, prf_hz=r.prf_hz,
-            velocity_mps=g.effective_velocity_mps,
-            range_ref_m=g.slant_range_m, t_start_fast=t0,
-            num_pulses=size, num_samples=size)
-        f = csa_ops.csa_factors(p)
-        cp = cfar.CfarParams(guard=2, train=8)
-        rng = np.random.default_rng(11)
-        x1 = (rng.standard_normal((size, size))
-              + 1j * rng.standard_normal((size, size))).astype(np.complex64)
-        x2 = (x1 * np.exp(1j * 0.31)
-              + 0.05 * (rng.standard_normal((size, size))
-                        + 1j * rng.standard_normal((size, size)))
-              ).astype(np.complex64)
-        args = (jnp.asarray(x1.real), jnp.asarray(x1.imag),
-                jnp.asarray(x2.real), jnp.asarray(x2.imag), f)
-        want = gmti_cpi_pallas(*args, cfar_params=cp, interpret=True)
-        got = gmti_cpi_pallas(*args, cfar_params=cp, interpret=True,
-                              k1_impl="fused2ch")
-        assert abs(float(got[4]) - float(want[4])) < 1e-6   # balance phase
-        for i in (0, 1, 2, 3, 5, 6):                        # SLCs + products
-            w = np.asarray(want[i])
-            scale = max(np.abs(w).max(), 1e-30)
-            np.testing.assert_allclose(np.asarray(got[i]), w,
-                                       atol=1e-5 * scale)
-        np.testing.assert_allclose(np.asarray(got[7].snr),
-                                   np.asarray(want[7].snr),
-                                   rtol=1e-4, atol=1e-4)
-
-    def test_k2_pair_matches_split(self):
-        """k2_pair_call (two-channel K2, shared Phi2/Phi3 trig) is
-        bit-identical per channel to two _k2_call invocations."""
-        import jax.numpy as jnp
-        from nis_sar_amtigmti_video_tpu import config as cfg2
-        from nis_sar_amtigmti_video_tpu.ops import csa as csa_ops
-        from nis_sar_amtigmti_video_tpu.ops.echo import window_start_time
-        from nis_sar_amtigmti_video_tpu.ops.pallas import csa_kernel
-
-        size = 256
-        sc = cfg2.videosar()
-        g, r = sc.geometry, sc.radar
-        t0 = window_start_time(g.slant_range_m, None,
-                               sc.collect.window_length_s, "centered")
-        p = csa_ops.CsaParams(
-            wavelength_m=r.wavelength_m, chirp_rate=r.chirp_rate,
-            fs_hz=r.fs_hz, prf_hz=r.prf_hz,
-            velocity_mps=g.effective_velocity_mps,
-            range_ref_m=g.slant_range_m, t_start_fast=t0,
-            num_pulses=size, num_samples=size)
-        f = csa_ops.csa_factors(p)
-        b = int(np.sqrt(size))
-        rng = np.random.default_rng(5)
-        planes = [jnp.asarray(rng.standard_normal((size, size))
-                              .astype(np.float32)) for _ in range(4)]
-        for variant in ("dots", "restack"):
-            got = csa_kernel.k2_pair_call(*planes, f, b, True, "bf16x3",
-                                          variant=variant)
-            w1 = csa_kernel._k2_call(planes[0], planes[1], f, b, True,
-                                     "bf16x3", variant=variant)
-            w2 = csa_kernel._k2_call(planes[2], planes[3], f, b, True,
-                                     "bf16x3", variant=variant)
-            for g_, w_ in zip(got, w1 + w2):
-                np.testing.assert_array_equal(np.asarray(g_),
-                                              np.asarray(w_))
-
-    def test_no_balance_kernel(self):
-        import jax.numpy as jnp
-        from nis_sar_amtigmti_video_tpu import config as cfg2
-        from nis_sar_amtigmti_video_tpu.gmti.fused import gmti_cpi_pallas
-        from nis_sar_amtigmti_video_tpu.ops import csa as csa_ops
-        from nis_sar_amtigmti_video_tpu.ops.echo import window_start_time
-
-        size = 256
-        sc = cfg2.videosar()
-        g, r = sc.geometry, sc.radar
-        t0 = window_start_time(g.slant_range_m, None,
-                               sc.collect.window_length_s, "centered")
-        p = csa_ops.CsaParams(
-            wavelength_m=r.wavelength_m, chirp_rate=r.chirp_rate,
-            fs_hz=r.fs_hz, prf_hz=r.prf_hz,
-            velocity_mps=g.effective_velocity_mps,
-            range_ref_m=g.slant_range_m, t_start_fast=t0,
-            num_pulses=size, num_samples=size)
-        f = csa_ops.csa_factors(p)
-        rng = np.random.default_rng(8)
-        x = (rng.standard_normal((size, size))
-             + 1j * rng.standard_normal((size, size))).astype(np.complex64)
-        out = gmti_cpi_pallas(jnp.asarray(x.real), jnp.asarray(x.imag),
-                              jnp.asarray(x.real), jnp.asarray(x.imag), f,
-                              balance=False, interpret=True)
-        cal, dmag = out[4], out[6]
-        assert float(cal) == 0.0
-        # identical channels, no balance: DPCA difference is exactly zero
-        assert float(np.abs(np.asarray(dmag)).max()) == 0.0

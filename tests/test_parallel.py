@@ -291,28 +291,6 @@ class TestShardedBP:
                                  w_win=w_win, factorize=factorize)
         return raw, traj, p, plan, float(t0), vel
 
-    def test_fast_bp_sharded_pallas_accumulate(self):
-        """The distributed fast-BP path with the pixel-tile pallas kernel
-        (interpret mode) must match the single-device pallas path — the
-        round-2 gap where bp_fast_sharded bypassed the kernel."""
-        from nis_sar_amtigmti_video_tpu.ops import bp_fast
-        from nis_sar_amtigmti_video_tpu.ops.pallas import bp_kernel
-
-        raw, traj, p, plan, t0, vel = self._bp_scene(w_win=64)
-        assert bp_kernel.supported(plan)
-        pos = jnp.asarray(traj.positions)
-        ve = jnp.asarray(traj.velocities)
-        ts = jnp.asarray(traj.times)
-        vf = jnp.asarray(vel, jnp.float64)
-        want = cplx.to_host(bp_fast.backproject_fast(
-            raw, pos, ve, ts, vf, p, plan, presum=2, compress=True,
-            accumulate="pallas_interpret"))
-        m = mesh_mod.make_mesh((1, 1, 8))
-        got = cplx.to_host(corner_turn.bp_fast_sharded(
-            raw, pos, ve, ts, vf, jnp.float64(t0), p, plan, m, axis="seq",
-            presum=2, accumulate="pallas_interpret"))
-        np.testing.assert_allclose(got, want, atol=2e-4 * np.abs(want).max())
-
     def test_fast_bp_sharded_factor_accumulate(self):
         """Sharded factorized (sub-aperture) accumulate vs the single-device
         factorized path: per-shard anchors change only the band-limited
@@ -356,16 +334,13 @@ class TestShardedBP:
             presum=2, accumulate="factor2"))
         np.testing.assert_allclose(got, want, atol=2e-3 * np.abs(want).max())
 
-    def test_fast_bp_sharded_kernel_recentre_and_spectra(self):
-        """Sharded fused-kernel recentre (band-limited inverse per shard)
-        and the sharded streaming raw_spectra feed must both match the
-        single-device path; the spectra feed must equal the in-shard
-        kernel recentre exactly (split == fused)."""
+    def test_fast_bp_sharded_spectra(self):
+        """The sharded streaming raw_spectra feed (XLA recentre from cached
+        spectra per shard) must match the single-device spectra path and
+        the raw-pulse path."""
         from nis_sar_amtigmti_video_tpu.ops import bp_fast
-        from nis_sar_amtigmti_video_tpu.ops.pallas import fft_kernel
 
         raw, traj, p, plan, t0, vel = self._bp_scene(n_s=9000)
-        assert fft_kernel.supported(plan.nfft)
         pos = jnp.asarray(traj.positions)
         ve = jnp.asarray(traj.velocities)
         ts = jnp.asarray(traj.times)
@@ -373,19 +348,36 @@ class TestShardedBP:
         want = cplx.to_host(bp_fast.backproject_fast(
             raw, pos, ve, ts, vf, p, plan, presum=2, compress=True,
             accumulate="xla"))
-        m = mesh_mod.make_mesh((1, 1, 8))
-        krec = cplx.to_host(corner_turn.bp_fast_sharded(
-            raw, pos, ve, ts, vf, jnp.float64(t0), p, plan, m, axis="seq",
-            presum=2, accumulate="xla", recentre="pallas_interpret"))
-        np.testing.assert_allclose(krec, want,
-                                   atol=1e-3 * np.abs(want).max())
         spec = bp_fast.forward_spectra(raw, p)
+        local = cplx.to_host(bp_fast.backproject_fast(
+            None, pos, ve, ts, vf, p, plan, presum=2, compress=True,
+            accumulate="xla", raw_spectra=spec))
+        np.testing.assert_allclose(local, want,
+                                   atol=1e-3 * np.abs(want).max())
+        m = mesh_mod.make_mesh((1, 1, 8))
         sspec = cplx.to_host(corner_turn.bp_fast_sharded(
             None, pos, ve, ts, vf, jnp.float64(t0), p, plan, m, axis="seq",
-            presum=2, accumulate="xla", recentre="pallas_interpret",
-            raw_spectra=spec))
-        np.testing.assert_allclose(sspec, krec,
-                                   atol=1e-6 * np.abs(want).max())
+            presum=2, accumulate="xla", raw_spectra=spec))
+        np.testing.assert_allclose(sspec, local,
+                                   atol=2e-4 * np.abs(want).max())
+
+    def test_fast_bp_sharded_rejects_removed_accumulate(self):
+        from nis_sar_amtigmti_video_tpu.ops import bp as bp_ops
+        from nis_sar_amtigmti_video_tpu.ops import bp_fast
+
+        p = bp_ops.BpParams(fc_hz=9.65e9, chirp_rate=150e6 / 2e-6,
+                            fs_hz=180e6, pulse_width_s=2e-6,
+                            num_samples=1024, nx=32, ny=32,
+                            scene_size_m=200.0)
+        plan = bp_fast.FastBpPlan(ny_i=128, nx_i=128, w_win=32, stride=1,
+                                  band_start=7, nfft=1024, dx_m=1.0,
+                                  t_ref=1e-3, n_org=100.0)
+        m = mesh_mod.make_mesh((1, 1, 8))
+        with pytest.raises(ValueError, match="xla, factor, factor2"):
+            corner_turn.bp_fast_sharded(
+                jnp.zeros((64, 1024), jnp.complex64), jnp.zeros((64, 3)),
+                jnp.zeros((64, 3)), jnp.zeros(64), jnp.zeros(3),
+                jnp.float64(0.0), p, plan, m, presum=2, accumulate="pallas")
 
     def test_fast_bp_sharded_rejects_ragged(self):
         from nis_sar_amtigmti_video_tpu.ops import bp as bp_ops
